@@ -1,0 +1,133 @@
+"""Reduced density matrices of the 1-site C4v iPEPS (counterpart of the
+``_sym_pos_def_*``, ``rdm2x1_sl``, ``rdm3x1_sl`` and ``rdm2x2_*_lowmem_sl``
+subset of tpeps/ctm/c4v/rdm.py).
+
+Output convention: ``rho[s_0..s_n, s'_0..s'_n]`` with unprimed indices
+from the ket layer.  The (chi D^2)^2 x d^2 contractions of the 2x2 RDMs are
+plain matrix products and stay ``torch.matmul`` (cuBLAS on the card).
+"""
+
+from __future__ import annotations
+
+import warnings
+
+import torch
+
+from .ctmrg import open_c2x2_sl
+from .env import EnvC4v
+
+
+def _cast_to_real(t, imag_eps: float = 1.0e-8):
+    """Drop a (checked-small) imaginary part; warn if it is not small."""
+    if t.is_complex():
+        im, re = float(t.imag.abs().max()), float(t.real.abs().max())
+        if im > imag_eps * max(re, 1.0):
+            warnings.warn(
+                f"_cast_to_real: imaginary part {im:.3e} exceeds {imag_eps:.1e}x real "
+                f"part {re:.3e} — environment may be broken", stacklevel=2)
+        return t.real
+    return t
+
+
+def _sym_pos_def_matrix(rho, sym_pos_def: bool = False):
+    """Hermitize, optionally project to positive semidefinite, normalize
+    by the trace."""
+    rho = 0.5 * (rho + rho.mH)
+    if sym_pos_def:
+        w, u = torch.linalg.eigh(rho)
+        rho_pos = (u * w.clamp(min=0.0)[None, :].to(u.dtype)) @ u.mH
+        # same arithmetic as the differentiable straight-through form
+        rho = rho + (rho_pos - rho)
+    return rho / _cast_to_real(torch.trace(rho))
+
+
+def _sym_pos_def_rdm(rho, sym_pos_def: bool = False):
+    """:func:`_sym_pos_def_matrix` on a rank-2n RDM."""
+    nsites = rho.dim() // 2
+    orig = rho.shape
+    dim = 1
+    for s in orig[:nsites]:
+        dim *= s
+    return _sym_pos_def_matrix(rho.reshape(dim, dim), sym_pos_def=sym_pos_def).reshape(orig)
+
+
+def _open_c2x2_6(a, env: EnvC4v):
+    """Open enlarged corner as ``[down-chi, d^2, right-chi, r^2, s, s']``."""
+    chi = env.C.shape[0]
+    D = a.shape[1]
+    d = a.shape[0]
+    return open_c2x2_sl(a, env.C, env.T).reshape(chi, D * D, chi, D * D, d, d)
+
+
+def rdm2x1_sl(a, env: EnvC4v, sym_pos_def: bool = False):
+    """2-site nearest-neighbour RDM via left-half reuse."""
+    C, T = env
+    oc = _open_c2x2_6(a, env)
+    cb = torch.einsum("xy,ybn->xbn", C, T)
+    lh = torch.einsum("xbm,xmirsz->birsz", cb, oc)
+    rho = torch.einsum("birsz,ibrwv->szwv", lh, lh)
+    return _sym_pos_def_rdm(rho.permute(0, 2, 1, 3), sym_pos_def=sym_pos_def)
+
+
+def rdm3x1_sl(a, env: EnvC4v, sym_pos_def: bool = False):
+    """Distance-2 2-site RDM: left half + central T-aa*-T column + mirrored
+    right half.  Physical order ``s0 (center traced) s1``."""
+    C, T = env
+    D = a.shape[1]
+    D2 = D * D
+    oc = _open_c2x2_6(a, env)
+    A = torch.einsum("suldr,svmfg->uvlmdfrg", a, a.conj()).reshape(D2, D2, D2, D2)
+    cb = torch.einsum("xy,ybn->xbn", C, T)
+    lh = torch.einsum("xbm,xmirsz->birsz", cb, oc)
+    q = torch.einsum("bcn,birsz->cnirsz", T, lh)
+    q = torch.einsum("uvnw,cnivsz->uwcisz", A, q)
+    q = torch.einsum("tiu,uwcisz->twcsz", T, q)
+    rho = torch.einsum("twcsz,tcwef->szef", q, lh)
+    return _sym_pos_def_rdm(rho.permute(0, 2, 1, 3), sym_pos_def=sym_pos_def)
+
+
+def _open_corner_and_trace(a, env: EnvC4v):
+    """``oc[(x), (y), (s,s')]`` as a (chi D^2, chi D^2, d^2) tensor and its
+    physical trace ``cc[x, y]``."""
+    chi = env.C.shape[0]
+    D = a.shape[1]
+    d = a.shape[0]
+    N = chi * D * D
+    oc = open_c2x2_sl(a, env.C, env.T)
+    cc = oc.diagonal(dim1=2, dim2=3).sum(-1)
+    return oc.reshape(N, N, d * d), cc
+
+
+def rdm2x2_NN_lowmem_sl(a, env: EnvC4v, sym_pos_def: bool = False):
+    """Nearest-neighbour 2-site RDM from 2x2 quadrants::
+
+        C2x2--C2x2c        s0 c
+        C2x2--C2x2c        s1 c
+    """
+    d = a.shape[0]
+    oc, cc = _open_corner_and_trace(a, env)
+    N = oc.shape[0]
+    r1 = (cc @ oc.reshape(N, -1)).reshape(N, N, d * d)
+    r2 = (cc @ r1.reshape(N, -1)).reshape(N, N, d * d)
+    del r1
+    # rho[j, i] = sum_{x,y} oc[x, y, j] r2[y, x, i]
+    rho = oc.reshape(N * N, d * d).transpose(0, 1) @ r2.transpose(0, 1).reshape(N * N, d * d)
+    rho = rho.reshape(d, d, d, d).permute(0, 2, 1, 3)
+    return _sym_pos_def_rdm(rho, sym_pos_def=sym_pos_def)
+
+
+def rdm2x2_NNN_lowmem_sl(a, env: EnvC4v, sym_pos_def: bool = False):
+    """Next-nearest (diagonal) 2-site RDM from 2x2 quadrants::
+
+        C2x2---C2x2c       s0 c
+        C2x2c--C2x2        c  s1
+    """
+    d = a.shape[0]
+    oc, cc = _open_corner_and_trace(a, env)
+    N = oc.shape[0]
+    r1 = (cc @ oc.reshape(N, -1)).reshape(N, N, d * d)
+    del oc
+    # rho[i, j] = sum_{a,c} r1[a, c, i] r1[c, a, j]
+    rho = r1.reshape(N * N, d * d).transpose(0, 1) @ r1.transpose(0, 1).reshape(N * N, d * d)
+    rho = rho.reshape(d, d, d, d).permute(0, 2, 1, 3)
+    return _sym_pos_def_rdm(rho, sym_pos_def=sym_pos_def)

@@ -1,0 +1,63 @@
+"""Hand-written Hopper kernels of the factored C4v move, each with a plain
+PyTorch twin.
+
+Every wrapper routes by the device of its inputs: CPU tensors go to the
+twin (the same math in plain torch ops, used by the CPU tests), CUDA
+tensors launch the kernel or raise.  There is no fallback from a CUDA
+tensor to the twin.  The wrappers are forward-only and raise on inputs
+that require grad.
+
+``LAUNCHES`` counts kernel launches per wrapper; a wrapper adds one where
+it launches its kernel and nowhere else.
+"""
+
+from __future__ import annotations
+
+import torch
+
+KERNELS = ("layer_contract", "corner_apply", "gram_ridge", "trsm_right_lower_h", "t_epilogue")
+LAUNCHES = dict.fromkeys(KERNELS, 0)
+
+
+def reset_launch_counts() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def launch_counts() -> dict:
+    return dict(LAUNCHES)
+
+
+def route(name: str, *tensors: torch.Tensor) -> bool:
+    """Validate a wrapper's inputs; return True to launch the kernel
+    (CUDA inputs), False for the twin (CPU inputs)."""
+    for t in tensors:
+        if t.requires_grad:
+            raise RuntimeError(f"{name} is forward-only: an input requires grad")
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"{name}: inputs on several devices {sorted(map(str, devices))}")
+    dev = devices.pop()
+    if dev.type == "cpu":
+        return False
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {dev}")
+    dtypes = {t.dtype for t in tensors}
+    if len(dtypes) != 1 or next(iter(dtypes)) not in (torch.float32, torch.float64):
+        raise TypeError(f"{name}: the CUDA kernel takes float32 or float64 inputs of one "
+                        f"dtype, got {sorted(map(str, dtypes))}")
+    return True
+
+
+def suffix(t: torch.Tensor) -> str:
+    return "f64" if t.dtype == torch.float64 else "f32"
+
+
+def stream_of(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def require_contiguous(name: str, **tensors: torch.Tensor) -> None:
+    for arg, t in tensors.items():
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {arg} must be contiguous")

@@ -1,0 +1,65 @@
+"""Hermitian eigendecomposition helpers, forward only (counterpart of
+tpeps/linalg/eigh.py).  The regularized VJP of ``eigh_desc`` comes with the
+gradient slice of the port."""
+
+from __future__ import annotations
+
+import torch
+
+
+def eigh_desc(A, ad_decomp_reg: float = 1.0e-12):
+    """Hermitian eigendecomposition ordered by descending ``|eigenvalue|``.
+
+    :return: ``(D, U)`` with ``A = U diag(D) U^H``, ``D`` real.  The sort is
+        stable, as JAX's argsort is, so ties keep ascending order.
+    """
+    D, U = torch.linalg.eigh(A)
+    order = torch.argsort(-D.abs(), stable=True)
+    return D[order], U[:, order]
+
+
+def multiplet_mask(D, chi: int, eps_multiplet: float = 1.0e-8, abs_tol: float = 1.0e-14):
+    """Mask over the leading ``chi`` values that never splits a
+    near-degenerate multiplet: if the cut at ``chi`` falls inside one, the
+    cut is pulled back to the last clean gap.
+
+    :param D: spectral values sorted by descending magnitude, ``len >= chi+1``
+    :return: mask of shape ``(chi,)`` (1 keep / 0 drop) in ``D``'s real
+        dtype; a default-dtype constant here would silently promote a
+        float32 move to float64.
+    """
+    absD = D[: chi + 1].abs()
+    absD = torch.where(absD < abs_tol, torch.zeros_like(absD), absD)
+    gaps = (absD[:chi] - D[1 : chi + 1].abs()) / (absD[:chi] + 1.0e-16)
+    gaps = torch.where(gaps > 1.0, torch.zeros_like(gaps), gaps)
+    idx = torch.arange(chi, device=D.device)
+    is_gap = gaps > eps_multiplet
+    last_gap = torch.where(is_gap, idx, torch.full_like(idx, -1)).max()
+    chi_new = torch.where(last_gap >= 0, last_gap, torch.full_like(last_gap, chi))
+    cut = torch.where(is_gap[chi - 1], torch.full_like(chi_new, chi), chi_new)
+    return (idx <= cut).to(absD.dtype)
+
+
+def truncated_eigh_sym(
+    M,
+    chi: int,
+    keep_multiplets: bool = True,
+    ad_decomp_reg: float = 1.0e-12,
+    eps_multiplet: float = 1.0e-12,
+    abs_tol: float = 1.0e-14,
+):
+    """Leading-``chi`` eigenpairs of a hermitian matrix, multiplet-safe,
+    zero-padded to ``chi`` columns."""
+    N = M.shape[0]
+    D, U = eigh_desc(M, ad_decomp_reg)
+    chi_eff = min(chi, N)
+    Dt = D[:chi_eff]
+    Ut = U[:, :chi_eff]
+    if keep_multiplets and chi < N:
+        mask = multiplet_mask(D, chi_eff, eps_multiplet=eps_multiplet, abs_tol=abs_tol)
+        Dt = Dt * mask
+        Ut = Ut * mask[None, :]
+    if chi_eff < chi:
+        Dt = torch.nn.functional.pad(Dt, (0, chi - chi_eff))
+        Ut = torch.nn.functional.pad(Ut, (0, chi - chi_eff))
+    return Dt, Ut

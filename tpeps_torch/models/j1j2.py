@@ -1,0 +1,94 @@
+"""Spin-1/2 J1-J2(-J3) model on the 1-site C4v ansatz with bipartite
+sublattice rotation (counterpart of ``J1J2`` and ``J1J2_C4V_BIPARTITE``
+in tpeps/models/j1j2.py, restricted to what the C4v energy and
+observables use)."""
+
+from __future__ import annotations
+
+from math import sqrt
+
+import torch
+
+from ..ctm.c4v import rdm as rdm_c4v
+from ..ctm.c4v.env import EnvC4v
+from ..groups import su2
+
+
+def _cast_to_real(t):
+    return t.real if t.is_complex() else t
+
+
+def _contract(rho, op):
+    return torch.einsum("ijkl,ijkl", rho, op)
+
+
+class J1J2_C4V_BIPARTITE:
+    """J1-J2-J3 on the square lattice, 1-site C4v ansatz, bipartite rotation."""
+
+    def __init__(self, j1=1.0, j2=0.0, j3=0.0, hz_stag=0.0, delta_zz=1.0,
+                 h_uni=(0.0, 0.0, 0.0), dtype=torch.float64, device="cpu"):
+        self.dtype = dtype
+        self.device = device
+        self.phys_dim = 2
+        self.j1, self.j2, self.j3 = j1, j2, j3
+        self.hz_stag = hz_stag
+        self.delta_zz = delta_zz
+        self.h_uni = torch.as_tensor(h_uni, dtype=dtype, device=device)
+        self._h_uni_norm = float(sum(abs(h) ** 2 for h in h_uni) ** 0.5)
+        if h_uni[2] != 0 and not dtype.is_complex:
+            raise ValueError("the h^y term requires a complex dtype")
+
+        s2 = su2.SU2(self.phys_dim, dtype=dtype, device=device)
+        kron = lambda x, y: torch.einsum("ij,ab->iajb", x, y)
+        self.SS_delta_zz = s2.SS(xyz=(delta_zz, 1.0, 1.0))
+        self.SS = s2.SS()
+        h_uni_1x1 = torch.einsum("x,xia->ia", self.h_uni, s2.S())
+        hz_2x1_nn = kron(s2.SZ(), s2.I()) + kron(s2.I(), -s2.SZ())
+        huni_2x1_nn = kron(h_uni_1x1, s2.I()) + kron(s2.I(), h_uni_1x1)
+
+        rot = s2.BP_rot()
+        rot2 = lambda op: torch.einsum("ki,kjcb,ca->ijab", rot, op, rot)
+        self.SS_rot = rot2(self.SS)
+        self.SS_delta_zz_rot = rot2(self.SS_delta_zz)
+        self.hz_2x1_rot = rot2(hz_2x1_nn)
+        self.huni_2x1_rot = rot2(huni_2x1_nn)
+        self.obs_ops = {"sz": s2.SZ(), "sp": s2.SP(), "sm": s2.SM()}
+
+    @torch.inference_mode()
+    def energy_1x1_lowmem(self, a, env: EnvC4v):
+        """Energy per site from the NN + NNN (+ 3x1) RDMs."""
+        rho_nn = rdm_c4v.rdm2x2_NN_lowmem_sl(a, env, sym_pos_def=True)
+        e = 2.0 * self.j1 * _contract(rho_nn, self.SS_delta_zz_rot)
+        e = e - 0.5 * self.hz_stag * _contract(rho_nn, self.hz_2x1_rot)
+        if self._h_uni_norm > 0:
+            e = e + 0.5 * _contract(rho_nn, self.huni_2x1_rot)
+        if abs(self.j2) > 0:
+            rho_nnn = rdm_c4v.rdm2x2_NNN_lowmem_sl(a, env, sym_pos_def=True)
+            e = e + 2.0 * self.j2 * _contract(rho_nnn, self.SS)
+        if abs(self.j3) > 0:
+            rho3x1 = rdm_c4v.rdm3x1_sl(a, env, sym_pos_def=True)
+            e = e + 2 * self.j3 * _contract(rho3x1, self.SS)
+        return _cast_to_real(e)
+
+    @torch.inference_mode()
+    def eval_obs(self, a, env: EnvC4v):
+        """Observables (m, <sz>, <sp>, <sm>, SS2x1, [SS_nnn], [SS3x1])."""
+        obs = {}
+        if abs(self.j3) > 0:
+            obs["SS3x1"] = complex(_contract(rdm_c4v.rdm3x1_sl(a, env), self.SS)).real
+        if abs(self.j2) > 0:
+            rho_nnn = rdm_c4v.rdm2x2_NNN_lowmem_sl(a, env)
+            obs["SS_nnn"] = complex(_contract(rho_nnn, self.SS)).real
+        rho2x1 = rdm_c4v.rdm2x1_sl(a, env)
+        obs["SS2x1"] = complex(_contract(rho2x1, self.SS_rot)).real
+        rho1x1 = torch.einsum("ijaj->ia", rho2x1)
+        rho1x1 = rho1x1 / torch.trace(rho1x1)
+        for label, op in self.obs_ops.items():
+            obs[label] = complex(torch.trace(rho1x1 @ op))
+        obs["m"] = sqrt(abs(obs["sz"] ** 2 + obs["sp"] * obs["sm"]))
+        labels = ["m"] + list(self.obs_ops) + ["SS2x1"]
+        if abs(self.j2) > 0:
+            labels += ["SS_nnn"]
+        if abs(self.j3) > 0:
+            labels += ["SS3x1"]
+        return [obs[l] for l in labels], labels
