@@ -36,7 +36,7 @@ def case(request):
     rng = np.random.RandomState(D)
     aj = j_symmetrize(jnp.asarray(rng.rand(2, D, D, D, D) - 0.5), normalize=True)
     envj = j_init_env(aj, chi, "CTMRG")
-    at, envt = to_torch(np.asarray(aj), (np.asarray(envj.C), np.asarray(envj.T)))
+    at, envt = to_torch(np.asarray(aj), (np.asarray(envj.C), np.asarray(envj.T)), device="cpu")
     P = np.linalg.qr(rng.rand(chi * D * D, chi) - 0.5)[0]
     return dict(D=D, chi=chi, aj=aj, envj=envj, Tj=jm.to_tpu_layout(envj.T, D),
                 at=at, envt=envt, Tt=tm.to_int_layout(envt.T, D), P=P)
@@ -103,7 +103,7 @@ def test_full_move_complex_state():
     aj = j_symmetrize(jnp.asarray(x), normalize=True)
     envj = j_init_env(aj, chi, "CTMRG")
     at, envt = to_torch(np.asarray(aj), (np.asarray(envj.C), np.asarray(envj.T)),
-                        dtype=torch.complex128)
+                        device="cpu", dtype=torch.complex128)
     P0 = np.eye(chi * D * D, chi)
     Cj, Tj, specj, _ = (np.asarray(x) for x in jm.ctm_move_sl_tpu(
         aj, envj.C, jm.to_tpu_layout(envj.T, D), jnp.asarray(P0, dtype=jnp.complex128)))

@@ -16,10 +16,11 @@ from tpeps_torch import kernels
 from tpeps_torch.ctm.c4v.env import init_env
 from tpeps_torch.ctm.c4v.move_factored import run_ctmrg
 from tpeps_torch.ipeps.ipeps_c4v import symmetrize_c4v
-from tpeps_torch.kernels.cholqr import gram_ridge, trsm_right_lower_h
+from tpeps_torch.kernels.cholqr import gram, gram_ridge, trsm_right_lower, trsm_right_lower_h
 from tpeps_torch.kernels.corner import corner_apply
 from tpeps_torch.kernels.epilogue import t_epilogue
 from tpeps_torch.kernels.layer import layer_contract
+from tpeps_torch.kernels.polar import polar_unitary, polar_vjp
 from tpeps_torch.models.j1j2 import J1J2_C4V_BIPARTITE
 
 REPO = Path(__file__).resolve().parent.parent
@@ -42,7 +43,7 @@ def test_cpu_slice_launches_no_kernel():
     x = np.random.RandomState(0).rand(2, 2, 2, 2, 2) - 0.5
     a = symmetrize_c4v(torch.from_numpy(x), normalize=True)
     env, n, dist, _ = run_ctmrg(a, init_env(a, 8, "CTMRG"), max_iter=5)
-    e = J1J2_C4V_BIPARTITE(j2=0.3).energy_1x1_lowmem(a, env)
+    e = J1J2_C4V_BIPARTITE(j2=0.3, device="cpu").energy_1x1_lowmem(a, env)
     assert np.isfinite(float(e)) and n == 5
     assert kernels.launch_counts() == dict.fromkeys(kernels.KERNELS, 0)
 
@@ -56,8 +57,12 @@ def _wrapper_calls(make):
         "layer_contract": lambda: layer_contract(W, X, Y, n_k=1),
         "corner_apply": lambda: corner_apply(make((12, 12)), P),
         "gram_ridge": lambda: gram_ridge(P, 1e-12),
+        "gram": lambda: gram(P, make((12, 4))),
         "trsm_right_lower_h": lambda: trsm_right_lower_h(L, P),
+        "trsm_right_lower": lambda: trsm_right_lower(L, P),
         "t_epilogue": lambda: t_epilogue(nT),
+        "polar_unitary": lambda: polar_unitary(L),
+        "polar_vjp": lambda: polar_vjp(L, make((4, 4))),
     }
 
 
@@ -102,9 +107,9 @@ def test_convert_round_trip_is_exact():
 
     rng = np.random.RandomState(2)
     a, C, T = rng.rand(2, 2, 2, 2, 2), rng.rand(4, 4), rng.rand(4, 4, 4)
-    at, env = to_torch(a, (C, T))
+    at, env = to_torch(a, (C, T), device="cpu")
     assert at.dtype == env.C.dtype == env.T.dtype == torch.float64
     a2, (C2, T2) = to_numpy(at, env)
     for x, y in ((a, a2), (C, C2), (T, T2)):
         np.testing.assert_array_equal(x, y)
-    assert to_torch(a, dtype=torch.float32).dtype == torch.float32
+    assert to_torch(a, device="cpu", dtype=torch.float32).dtype == torch.float32

@@ -69,7 +69,7 @@ def test_slice_end_to_end(case):
     np.testing.assert_allclose(env0.C.numpy(), np.asarray(case["env0j"].C), rtol=0, atol=1e-12)
     env, n, dist, _ = run_ctmrg(a, env0, max_iter=MAX_ITER, conv_tol=CONV_TOL)
     assert dist < CONV_TOL and case["distj"] < CONV_TOL
-    model = J1J2_C4V_BIPARTITE(j1=1.0, j2=0.3)
+    model = J1J2_C4V_BIPARTITE(j1=1.0, j2=0.3, device="cpu")
     assert abs(float(model.energy_1x1_lowmem(a, env)) - case["ej"]) < 1e-10
     _check_observables(model.eval_obs(a, env), case["obsj"])
 
@@ -77,10 +77,10 @@ def test_slice_end_to_end(case):
 def test_slice_from_carried_env(case):
     """The port from the JAX package's state and environment."""
     a, env0 = to_torch(np.asarray(case["aj"]),
-                       (np.asarray(case["env0j"].C), np.asarray(case["env0j"].T)))
+                       (np.asarray(case["env0j"].C), np.asarray(case["env0j"].T)), device="cpu")
     env, n, dist, _ = run_ctmrg(a, env0, max_iter=MAX_ITER, conv_tol=CONV_TOL)
     assert abs(n - case["nj"]) <= 1, (n, case["nj"])
-    model = J1J2_C4V_BIPARTITE(j1=1.0, j2=0.3)
+    model = J1J2_C4V_BIPARTITE(j1=1.0, j2=0.3, device="cpu")
     assert abs(float(model.energy_1x1_lowmem(a, env)) - case["ej"]) < 1e-10
     _check_observables(model.eval_obs(a, env), case["obsj"])
 
@@ -90,7 +90,7 @@ def test_state_file_read_bit_identical(tmp_path, fmt):
     a = np.random.RandomState(5).rand(2, 3, 3, 3, 3) - 0.5
     f = tmp_path / "state.json"
     j_write_ipeps(J_IPEPS({(0, 0): jnp.asarray(a)}, lX=1, lY=1), f, fmt=fmt)
-    site = read_ipeps_c4v(f).site()
+    site = read_ipeps_c4v(f, device="cpu").site()
     assert site.dtype == torch.float64
     np.testing.assert_array_equal(site.numpy(), a)
     # and back: the port's file reads bit-identically in the JAX package
@@ -124,7 +124,7 @@ def test_model_terms_on_a_shared_env(terms):
     x = np.random.RandomState(4).rand(2, 2, 2, 2, 2) - 0.5
     aj = j_symmetrize(jnp.asarray(x), normalize=True)
     envj = j_init_env(aj, 8, "CTMRG")
-    a, env = to_torch(np.asarray(aj), (np.asarray(envj.C), np.asarray(envj.T)))
-    mj, mt = J_J1J2(j1=1.0, **terms), J1J2_C4V_BIPARTITE(j1=1.0, **terms)
+    a, env = to_torch(np.asarray(aj), (np.asarray(envj.C), np.asarray(envj.T)), device="cpu")
+    mj, mt = J_J1J2(j1=1.0, **terms), J1J2_C4V_BIPARTITE(j1=1.0, device="cpu", **terms)
     assert abs(float(mt.energy_1x1_lowmem(a, env)) - float(mj.energy_1x1_lowmem(aj, envj))) < 1e-12
     _check_observables(mt.eval_obs(a, env), mj.eval_obs(aj, envj))

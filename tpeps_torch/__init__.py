@@ -7,9 +7,11 @@ port is tested against.
 
 Conventions: plain functions on tensors; every constructor takes explicit
 ``device=`` and ``dtype=`` (``DTYPE`` is the stated default, float64) and
-no global torch default is changed.  This slice is the forward C4v CTMRG
-path (factored move + RDMs + J1-J2 energy), run under
-``torch.inference_mode()``; its device kernels live in
+no global torch default is changed; entry points put their tensors on the
+card unless given ``device="cpu"``.  The port holds the C4v main path: the
+factored CTMRG move (forward), the differentiable reference-layout move
+with implicit and checkpointed gradients, the J1-J2 energy, L-BFGS and the
+example driver (:mod:`tpeps_torch.examples`).  Its device kernels live in
 :mod:`tpeps_torch.kernels` with sources in ``tpeps_torch/csrc``.
 """
 

@@ -64,7 +64,7 @@ def init_prod(a, chi: int, dtype) -> EnvC4v:
     return EnvC4v(C, T)
 
 
-def init_random(generator, chi: int, D2: int, dtype, device="cpu") -> EnvC4v:
+def init_random(generator, chi: int, D2: int, dtype, device="cuda") -> EnvC4v:
     """Random hermitian environment, uniform in [0, 1) per real component,
     drawn from ``generator`` (which must live on ``device``)."""
     real = torch.empty((), dtype=dtype).real.dtype

@@ -34,10 +34,10 @@ def _sym_pos_def_matrix(rho, sym_pos_def: bool = False):
     by the trace."""
     rho = 0.5 * (rho + rho.mH)
     if sym_pos_def:
-        w, u = torch.linalg.eigh(rho)
+        w, u = torch.linalg.eigh(rho.detach())
         rho_pos = (u * w.clamp(min=0.0)[None, :].to(u.dtype)) @ u.mH
-        # same arithmetic as the differentiable straight-through form
-        rho = rho + (rho_pos - rho)
+        # straight-through: forward is the clamped matrix, backward identity
+        rho = rho + (rho_pos - rho.detach())
     return rho / _cast_to_real(torch.trace(rho))
 
 

@@ -15,7 +15,7 @@ import torch
 class SU2:
     """Spin irrep of dimension ``J`` (physical spin S = (J-1)/2)."""
 
-    def __init__(self, J: int, dtype=torch.float64, device="cpu"):
+    def __init__(self, J: int, dtype=torch.float64, device="cuda"):
         self.J = J
         self.dtype = dtype
         self.device = device
@@ -79,7 +79,7 @@ class SU2:
         )
 
 
-def get_rot_op(m: int, dtype=torch.float64, device="cpu"):
+def get_rot_op(m: int, dtype=torch.float64, device="cuda"):
     """Bipartite sublattice-rotation operator."""
     res = np.zeros((m, m))
     for i in range(m):

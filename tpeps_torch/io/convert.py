@@ -1,21 +1,28 @@
-"""Carry a state and environment across between the JAX package and the port.
+"""Carry a state, an environment and a configuration across between the
+JAX package and the port.
 
 The JAX package's arrays go in as numpy arrays (``np.asarray`` of a jax
 array), so this module needs neither package: the site tensor
-``a[s,u,l,d,r]`` and optionally an environment ``(C, T)`` in public layout
-(``C[chi,chi]``, ``T[chi,chi,D^2]``) become tensors on a given device and
-dtype, and back.
+``a[s,u,l,d,r]`` (also the optimizer's input ``A0``) and optionally an
+environment ``(C, T)`` in public layout (``C[chi,chi]``, ``T[chi,chi,D^2]``)
+become tensors on a given device (the card unless the caller says
+otherwise) and dtype, and back.  A configuration goes in as the nested
+dict of ``dataclasses.asdict``; a state goes across as its JSON file, which
+both packages read and write bit for bit.
 """
 
 from __future__ import annotations
 
+from dataclasses import fields
+
 import numpy as np
 import torch
 
+from .. import config as _config
 from ..ctm.c4v.env import EnvC4v
 
 
-def to_torch(a, env=None, *, device="cpu", dtype=torch.float64):
+def to_torch(a, env=None, *, device="cuda", dtype=torch.float64):
     """numpy ``a`` (and ``env=(C, T)``) -> tensors; returns ``a`` or ``(a, EnvC4v)``."""
     conv = lambda x: torch.as_tensor(np.array(x, copy=True), device=device).to(dtype)
     if env is None:
@@ -30,3 +37,22 @@ def to_numpy(a, env=None):
     if env is None:
         return conv(a)
     return conv(a), (conv(env.C), conv(env.T))
+
+
+_GROUPS = {"main": _config.MainArgs, "global_args": _config.GlobalArgs,
+           "peps": _config.PepsArgs, "ctm": _config.CtmArgs, "opt": _config.OptArgs}
+
+
+def config_from_dict(d: dict) -> _config.Config:
+    """The port's :class:`~tpeps_torch.config.Config` from a nested dict
+    ``{group: {field: value}}`` with the JAX package's group and field names
+    (``dataclasses.asdict`` of its ``Config``); missing groups or fields
+    keep their defaults, unknown ones raise."""
+    kwargs = {}
+    for group, values in d.items():
+        cls = _GROUPS[group]
+        unknown = set(values) - {f.name for f in fields(cls)}
+        if unknown:
+            raise KeyError(f"{group}: unknown fields {sorted(unknown)}")
+        kwargs[group] = cls(**values)
+    return _config.Config(**kwargs)

@@ -67,7 +67,7 @@ class IPEPS:
 
 
 def read_ipeps(jsonfile, vertexToSite=None, aux_seq=(0, 1, 2, 3), cls=IPEPS,
-               dtype=None, device="cpu"):
+               dtype=None, device="cuda"):
     """Read a peps-torch JSON state.  ``aux_seq`` gives the order of the
     auxiliary indices in the file relative to [up, left, down, right].
     Tensors keep the file's dtype (float64 / complex128) unless ``dtype``

@@ -22,6 +22,31 @@ class IPEPS_C4V(ipeps_mod.IPEPS):
         tmp = IPEPS_C4V(symmetrize_c4v(self.site())) if symmetrize else self
         ipeps_mod.write_ipeps(tmp, outputfile, **kwargs)
 
+    def get_aux_bond_dims(self):
+        return list(self.site().shape[1:])
+
+    def add_noise(self, noise: float, generator=None):
+        """Add uniform noise in [0, noise) to the site, drawn from
+        ``generator`` (a ``torch.Generator`` on the site's device)."""
+        if noise == 0:
+            return self
+        A = self.site()
+        r = torch.rand(torch.view_as_real(A).shape if A.is_complex() else A.shape,
+                       generator=generator, dtype=A.real.dtype, device=A.device)
+        self.sites[(0, 0)] = A + noise * (torch.view_as_complex(r) if A.is_complex() else r)
+        return self
+
+
+def extend_bond_dim_c4v(state: IPEPS_C4V, new_d: int) -> IPEPS_C4V:
+    """Zero-pad the auxiliary dimensions of the site up to ``new_d``."""
+    A = state.site()
+    if any(new_d < d for d in A.shape[1:]):
+        raise ValueError("new bond dimension smaller than existing")
+    pad = []
+    for d in reversed(A.shape[1:]):
+        pad += [0, new_d - d]
+    return IPEPS_C4V(torch.nn.functional.pad(A, pad))
+
 
 def symmetrize_c4v(A, normalize: bool = False):
     """Project an on-site tensor to A1 (real) or A1 + iA2 (complex) and
@@ -35,7 +60,7 @@ def symmetrize_c4v(A, normalize: bool = False):
     return A
 
 
-def read_ipeps_c4v(jsonfile, aux_seq=(0, 1, 2, 3), dtype=None, device="cpu") -> IPEPS_C4V:
+def read_ipeps_c4v(jsonfile, aux_seq=(0, 1, 2, 3), dtype=None, device="cuda") -> IPEPS_C4V:
     """Read a single-site state."""
     state = ipeps_mod.read_ipeps(jsonfile, aux_seq=aux_seq, dtype=dtype, device=device)
     if len(state.sites) != 1:

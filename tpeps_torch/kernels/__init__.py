@@ -1,11 +1,15 @@
-"""Hand-written Hopper kernels of the factored C4v move, each with a plain
-PyTorch twin.
+"""Hand-written Hopper kernels of the C4v move and of its gradient, each
+with a plain PyTorch twin.
 
 Every wrapper routes by the device of its inputs: CPU tensors go to the
 twin (the same math in plain torch ops, used by the CPU tests), CUDA
 tensors launch the kernel or raise.  There is no fallback from a CUDA
-tensor to the twin.  The wrappers are forward-only and raise on inputs
-that require grad.
+tensor to the twin.  A wrapper computes one function, not its derivative:
+it raises on an input that requires grad.  Gradients go through
+``torch.autograd.Function``s (in :mod:`tpeps_torch.linalg.power`) whose
+``forward`` and ``backward`` call the wrappers on detached tensors; the
+backward ones are kernels of their own (``trsm_right_lower``, ``gram``,
+``polar_vjp``).
 
 ``LAUNCHES`` counts kernel launches per wrapper; a wrapper adds one where
 it launches its kernel and nowhere else.
@@ -15,7 +19,8 @@ from __future__ import annotations
 
 import torch
 
-KERNELS = ("layer_contract", "corner_apply", "gram_ridge", "trsm_right_lower_h", "t_epilogue")
+KERNELS = ("layer_contract", "corner_apply", "gram_ridge", "gram", "trsm_right_lower_h",
+           "trsm_right_lower", "t_epilogue", "polar_unitary", "polar_vjp")
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 
 
@@ -33,7 +38,8 @@ def route(name: str, *tensors: torch.Tensor) -> bool:
     (CUDA inputs), False for the twin (CPU inputs)."""
     for t in tensors:
         if t.requires_grad:
-            raise RuntimeError(f"{name} is forward-only: an input requires grad")
+            raise RuntimeError(f"{name} is forward-only: an input requires grad "
+                               "(call it on detached tensors inside an autograd.Function)")
     devices = {t.device for t in tensors}
     if len(devices) != 1:
         raise ValueError(f"{name}: inputs on several devices {sorted(map(str, devices))}")

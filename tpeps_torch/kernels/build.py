@@ -1,11 +1,12 @@
 """Build and load the hand-written CUDA kernels of ``tpeps_torch/csrc``.
 
-The sources are compiled with ``nvcc`` for Hopper (``sm_90a``) into one
-shared library with a plain C interface, loaded with :mod:`ctypes`.  The
-build happens at the first CUDA call (or an explicit :func:`build`), never
-at import, so the package imports on a machine without ``nvcc``.  The
-library goes to ``tpeps_torch/_build/`` under a name that hashes the
-sources and flags, so an edited source is always rebuilt.
+Each source is compiled with ``nvcc`` for Hopper (``sm_90a``) in its own
+process, all started together, and the objects are linked into one shared
+library with a plain C interface, loaded with :mod:`ctypes`.  The build
+happens at the first CUDA call (or an explicit :func:`build`), never at
+import, so the package imports on a machine without ``nvcc``.  The library
+goes to ``tpeps_torch/_build/`` under a name that hashes the sources and
+flags, so an edited source is always rebuilt.
 """
 
 from __future__ import annotations
@@ -21,11 +22,9 @@ from pathlib import Path
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-SOURCES = ("layer_contract.cu", "corner_apply.cu", "cholqr.cu", "t_epilogue.cu")
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+SOURCES = ("layer_contract.cu", "corner_apply.cu", "cholqr.cu", "t_epilogue.cu", "polar.cu")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _vp, _i, _i64, _d = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_double
 # name -> argtypes; every function returns a cudaError_t as int
@@ -34,11 +33,16 @@ _SIGNATURES = {
     "tpeps_layer_contract_f32": (_vp, _vp, _vp, _vp, _i, _vp),
     "tpeps_corner_apply_f64": (_vp, _vp, _vp, _i, _i, _vp),
     "tpeps_corner_apply_f32": (_vp, _vp, _vp, _i, _i, _vp),
-    "tpeps_gram_ridge_f64": (_vp, _vp, _vp, _i, _i, _d, _vp),
-    "tpeps_gram_ridge_f32": (_vp, _vp, _vp, _i, _i, _d, _vp),
+    "tpeps_gram_f64": (_vp, _vp, _vp, _vp, _i, _i, _i, _d, _vp),
+    "tpeps_gram_f32": (_vp, _vp, _vp, _vp, _i, _i, _i, _d, _vp),
     "tpeps_gram_splits": (_i,),
     "tpeps_trsm_right_lower_h_f64": (_vp, _vp, _vp, _i, _i, _vp),
     "tpeps_trsm_right_lower_h_f32": (_vp, _vp, _vp, _i, _i, _vp),
+    "tpeps_trsm_right_lower_f64": (_vp, _vp, _vp, _i, _i, _vp),
+    "tpeps_trsm_right_lower_f32": (_vp, _vp, _vp, _i, _i, _vp),
+    "tpeps_polar_unitary_f64": (_vp, _vp, _vp, _vp, _i, _i, _vp),
+    "tpeps_polar_vjp_f64": (_vp, _vp, _vp, _i, _vp),
+    "tpeps_polar_vjp_f32": (_vp, _vp, _vp, _i, _vp),
     "tpeps_t_epilogue_f64": (_vp, _vp, _vp, _i64, _i, _i, _vp),
     "tpeps_t_epilogue_f32": (_vp, _vp, _vp, _i64, _i, _i, _vp),
     "tpeps_t_epilogue_partials": (),
@@ -57,6 +61,8 @@ class KernelLibrary:
             fn = getattr(self.cdll, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
+        self.cdll.tpeps_polar_smem.restype = ctypes.c_int64
+        self.cdll.tpeps_polar_smem.argtypes = (_i, _i)
         self.cdll.tpeps_cuda_error_string.restype = ctypes.c_char_p
         self.cdll.tpeps_cuda_error_string.argtypes = (_i,)
 
@@ -90,22 +96,54 @@ def _source_hash() -> str:
     return h.hexdigest()[:16]
 
 
+def _compile_all(nvcc: str, objdir: Path) -> tuple[list[Path], str]:
+    """One nvcc process per source, all running at once; returns the
+    objects and the compilers' output.  Every process is reaped, and the
+    others are killed if one fails."""
+    procs = []
+    try:
+        for name in SOURCES:
+            obj = objdir / (Path(name).stem + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", str(CSRC_DIR / name), "-o", str(obj)]
+            procs.append((name, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        logs, failed = [], []
+        for name, _, proc in procs:
+            out, _ = proc.communicate()
+            logs.append(f"== {name}\n{out}")
+            if proc.returncode != 0:
+                failed.append(name)
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n" + "\n".join(logs))
+        return [obj for _, obj, _ in procs], "\n".join(logs)
+    finally:
+        for _, _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
 def build() -> KernelLibrary:
     """Compile the sources (unless this exact build exists) and load them."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    out = BUILD_DIR / f"libtpeps_kernels_{_source_hash()}.so"
+    tag = _source_hash()
+    out = BUILD_DIR / f"libtpeps_kernels_{tag}.so"
     log_path = out.with_suffix(".log")
     t0 = time.perf_counter()
     if not out.exists():
+        nvcc = find_nvcc()
+        objdir = BUILD_DIR / f"obj_{tag}_{os.getpid()}"
+        objdir.mkdir(exist_ok=True)
+        objs, log = _compile_all(nvcc, objdir)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               *(str(CSRC_DIR / s) for s in SOURCES)]
-        proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
-        log = proc.stdout + proc.stderr
+        proc = subprocess.run([nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)],
+                              capture_output=True, text=True, check=False)
+        log += proc.stdout + proc.stderr
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{log}")
         log_path.write_text(log)
         os.replace(tmp, out)
+        shutil.rmtree(objdir, ignore_errors=True)
     log = log_path.read_text() if log_path.exists() else ""
     return KernelLibrary(out, time.perf_counter() - t0, log)
 

@@ -1,5 +1,6 @@
 """K3 CholeskyQR kernels (``csrc/cholqr.cu``) and their twins: the Gram
-matrix with its ridge, and the right triangular solve ``Q L^H = P``."""
+matrix with its ridge, the two-operand Gram ``A^H B``, the right triangular
+solve ``Q L^H = P`` and its backward counterpart ``X L = B``."""
 
 from __future__ import annotations
 
@@ -7,6 +8,8 @@ import torch
 
 from . import LAUNCHES, require_contiguous, route, stream_of, suffix
 from .build import library
+
+_SMEM_LIMIT = 232448  # dynamic shared memory a block may use on sm_90
 
 
 def gram_ridge_twin(P, eps: float = 0.0):
@@ -17,6 +20,26 @@ def gram_ridge_twin(P, eps: float = 0.0):
     return G
 
 
+def gram_twin(A, B):
+    return A.mH @ B
+
+
+def _launch_gram(name: str, A, B, eps: float):
+    n, ka = A.shape
+    kb = B.shape[1]
+    lib = library()
+    splits = lib.cdll.tpeps_gram_splits(n)
+    part = torch.empty((splits, ka, kb), dtype=A.dtype, device=A.device)
+    G = torch.empty((ka, kb), dtype=A.dtype, device=A.device)
+    with torch.cuda.device(A.device):
+        err = getattr(lib.cdll, f"tpeps_gram_{suffix(A)}")(
+            A.data_ptr(), B.data_ptr(), part.data_ptr(), G.data_ptr(), n, ka, kb, float(eps),
+            stream_of(A))
+    lib.check(err, name)
+    LAUNCHES[name] += 1
+    return G
+
+
 def gram_ridge(P, eps: float = 0.0):
     """``G = P^H P + eps * tr(P^H P) / k * I`` for a tall ``P`` (n, k)."""
     if P.dim() != 2:
@@ -24,40 +47,56 @@ def gram_ridge(P, eps: float = 0.0):
     if not route("gram_ridge", P):
         return gram_ridge_twin(P, eps)
     require_contiguous("gram_ridge", P=P)
-    n, k = P.shape
-    lib = library()
-    splits = lib.cdll.tpeps_gram_splits(n)
-    part = torch.empty((splits, k, k), dtype=P.dtype, device=P.device)
-    G = torch.empty((k, k), dtype=P.dtype, device=P.device)
-    with torch.cuda.device(P.device):
-        err = getattr(lib.cdll, f"tpeps_gram_ridge_{suffix(P)}")(
-            P.data_ptr(), part.data_ptr(), G.data_ptr(), n, k, float(eps), stream_of(P))
-    lib.check(err, "gram_ridge")
-    LAUNCHES["gram_ridge"] += 1
-    return G
+    return _launch_gram("gram_ridge", P, P, eps)
+
+
+def gram(A, B):
+    """``G = A^H B`` for tall ``A`` (n, ka) and ``B`` (n, kb)."""
+    if A.dim() != 2 or B.dim() != 2 or A.shape[0] != B.shape[0]:
+        raise ValueError(f"gram: shapes A {tuple(A.shape)}, B {tuple(B.shape)}")
+    if not route("gram", A, B):
+        return gram_twin(A, B)
+    require_contiguous("gram", A=A, B=B)
+    return _launch_gram("gram", A, B, 0.0)
 
 
 def trsm_right_lower_h_twin(L, P):
     return torch.linalg.solve_triangular(L.mH, P, upper=True, left=False)
 
 
-def trsm_right_lower_h(L, P):
-    """``Q`` with ``Q L^H = P`` for lower-triangular ``L`` (k, k) and ``P`` (n, k)."""
+def trsm_right_lower_twin(L, B):
+    return torch.linalg.solve_triangular(L, B, upper=False, left=False)
+
+
+def _launch_trsm(name: str, fn: str, L, P):
     if L.dim() != 2 or P.dim() != 2 or L.shape != (P.shape[1], P.shape[1]):
-        raise ValueError(f"trsm_right_lower_h: shapes L {tuple(L.shape)}, P {tuple(P.shape)}")
-    if not route("trsm_right_lower_h", L, P):
-        return trsm_right_lower_h_twin(L, P)
-    require_contiguous("trsm_right_lower_h", L=L, P=P)
+        raise ValueError(f"{name}: shapes L {tuple(L.shape)}, rhs {tuple(P.shape)}")
+    require_contiguous(name, L=L, rhs=P)
     n, k = P.shape
     smem = (k * (k + 1) // 2 + k) * P.element_size()
-    if k > 256 or smem > 232448:
-        raise ValueError(f"trsm_right_lower_h: k={k} does not fit the kernel "
-                         f"(k <= 256 and {smem} B of shared memory <= 232448)")
-    Q = torch.empty_like(P)
+    if k > 256 or smem > _SMEM_LIMIT:
+        raise ValueError(f"{name}: k={k} does not fit the kernel "
+                         f"(k <= 256 and {smem} B of shared memory <= {_SMEM_LIMIT})")
+    X = torch.empty_like(P)
     lib = library()
     with torch.cuda.device(P.device):
-        err = getattr(lib.cdll, f"tpeps_trsm_right_lower_h_{suffix(P)}")(
-            L.data_ptr(), P.data_ptr(), Q.data_ptr(), n, k, stream_of(P))
-    lib.check(err, "trsm_right_lower_h")
-    LAUNCHES["trsm_right_lower_h"] += 1
-    return Q
+        err = getattr(lib.cdll, f"{fn}_{suffix(P)}")(
+            L.data_ptr(), P.data_ptr(), X.data_ptr(), n, k, stream_of(P))
+    lib.check(err, name)
+    LAUNCHES[name] += 1
+    return X
+
+
+def trsm_right_lower_h(L, P):
+    """``Q`` with ``Q L^H = P`` for lower-triangular ``L`` (k, k) and ``P`` (n, k)."""
+    if not route("trsm_right_lower_h", L, P):
+        return trsm_right_lower_h_twin(L, P)
+    return _launch_trsm("trsm_right_lower_h", "tpeps_trsm_right_lower_h", L, P)
+
+
+def trsm_right_lower(L, B):
+    """``X`` with ``X L = B`` for lower-triangular ``L`` (k, k) and ``B`` (n, k):
+    the backward of :func:`trsm_right_lower_h` (``P_bar = Q_bar L^-1``)."""
+    if not route("trsm_right_lower", L, B):
+        return trsm_right_lower_twin(L, B)
+    return _launch_trsm("trsm_right_lower", "tpeps_trsm_right_lower", L, B)

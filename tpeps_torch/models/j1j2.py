@@ -1,7 +1,8 @@
 """Spin-1/2 J1-J2(-J3) model on the 1-site C4v ansatz with bipartite
 sublattice rotation (counterpart of ``J1J2`` and ``J1J2_C4V_BIPARTITE``
 in tpeps/models/j1j2.py, restricted to what the C4v energy and
-observables use)."""
+observables use).  The operators live on ``device``: the card unless the
+caller asks for the CPU."""
 
 from __future__ import annotations
 
@@ -26,7 +27,7 @@ class J1J2_C4V_BIPARTITE:
     """J1-J2-J3 on the square lattice, 1-site C4v ansatz, bipartite rotation."""
 
     def __init__(self, j1=1.0, j2=0.0, j3=0.0, hz_stag=0.0, delta_zz=1.0,
-                 h_uni=(0.0, 0.0, 0.0), dtype=torch.float64, device="cpu"):
+                 h_uni=(0.0, 0.0, 0.0), dtype=torch.float64, device="cuda"):
         self.dtype = dtype
         self.device = device
         self.phys_dim = 2
@@ -54,9 +55,9 @@ class J1J2_C4V_BIPARTITE:
         self.huni_2x1_rot = rot2(huni_2x1_nn)
         self.obs_ops = {"sz": s2.SZ(), "sp": s2.SP(), "sm": s2.SM()}
 
-    @torch.inference_mode()
     def energy_1x1_lowmem(self, a, env: EnvC4v):
-        """Energy per site from the NN + NNN (+ 3x1) RDMs."""
+        """Energy per site from the NN + NNN (+ 3x1) RDMs; differentiable in
+        ``a`` and ``env``."""
         rho_nn = rdm_c4v.rdm2x2_NN_lowmem_sl(a, env, sym_pos_def=True)
         e = 2.0 * self.j1 * _contract(rho_nn, self.SS_delta_zz_rot)
         e = e - 0.5 * self.hz_stag * _contract(rho_nn, self.hz_2x1_rot)
@@ -70,7 +71,7 @@ class J1J2_C4V_BIPARTITE:
             e = e + 2 * self.j3 * _contract(rho3x1, self.SS)
         return _cast_to_real(e)
 
-    @torch.inference_mode()
+    @torch.no_grad()
     def eval_obs(self, a, env: EnvC4v):
         """Observables (m, <sz>, <sp>, <sm>, SS2x1, [SS_nnn], [SS3x1])."""
         obs = {}

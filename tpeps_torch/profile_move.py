@@ -2,10 +2,10 @@
 
 Usage::
 
-    python -m tpeps_torch.profile_move [--D 7] [--chi 147] [--moves 4] [--slice-phys]
+    python -m tpeps_torch.profile_move [--D 7] [--chi 147] [--moves 4] [--warmup 2] [--slice-phys]
 
 Builds the benchmark-case state (RandomState(0), C4v-symmetrized, float64),
-runs two warm-up moves, then profiles ``--moves`` moves with
+runs ``--warmup`` moves from the cold start, then profiles ``--moves`` moves with
 ``torch.profiler`` and prints the device time per kernel name (self time,
 summed over the window, per move), the host wall time per move, the
 device busy share (summed kernel time over wall time), and the host ops by
@@ -29,6 +29,7 @@ def main(argv=None) -> int:
     ap.add_argument("--D", type=int, default=7)
     ap.add_argument("--chi", type=int, default=147)
     ap.add_argument("--moves", type=int, default=4)
+    ap.add_argument("--warmup", type=int, default=2)
     ap.add_argument("--slice-phys", action="store_true")
     ap.add_argument("--top", type=int, default=25)
     args = ap.parse_args(argv)
@@ -59,7 +60,7 @@ def main(argv=None) -> int:
             C, T_int, _, P = mf.ctm_move_sl_factored(a, C, T_int, P, slice_phys=args.slice_phys)
         torch.cuda.synchronize()
 
-    moves(2)
+    moves(args.warmup)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         moves(args.moves)
@@ -78,7 +79,8 @@ def main(argv=None) -> int:
     busy_ms = sum(r[0] for r in rows) / 1000.0
     n = args.moves
     print(f"card: {smi}")
-    print(f"D={D} chi={chi} slice_phys={args.slice_phys}: {1000 * wall / n:.2f} ms/move wall, "
+    print(f"D={D} chi={chi} slice_phys={args.slice_phys}, after {args.warmup} moves: "
+          f"{1000 * wall / n:.2f} ms/move wall, "
           f"{busy_ms / n:.2f} ms/move summed device time, busy share {busy_ms / (1000 * wall):.3f}")
     print(f"{'ms/move':>9} {'calls/move':>10}  kernel")
     for us, count, key in rows[: args.top]:
