@@ -69,6 +69,29 @@ def test_multiplet_mask_keeps_the_spectrum_dtype():
     assert t_eigh.multiplet_mask(D, 2).dtype == torch.float32
 
 
+@pytest.mark.parametrize("n,dtype,kernel", [(12, torch.float64, True),
+                                             (169, torch.float64, True),
+                                             (170, torch.float64, False),
+                                             (12, torch.complex128, False)],
+                         ids=["real_small", "real_169", "real_170", "complex"])
+def test_eigh_desc_takes_eigh_small_for_real_up_to_169(monkeypatch, n, dtype, kernel):
+    """One decision, in linalg/eigh: a real matrix of size up to 169 goes to
+    the eigh_small kernel's wrapper (its twin here, on the CPU), any other to
+    torch.linalg.eigh; both give the descending-|D| decomposition."""
+    calls, eigh_small = [], t_eigh.eigh_small
+    monkeypatch.setattr(t_eigh, "eigh_small", lambda A: calls.append(A.shape) or eigh_small(A))
+    rng = np.random.RandomState(3)
+    A = rng.rand(n, n) - 0.5
+    if dtype.is_complex:
+        A = A + 1j * (rng.rand(n, n) - 0.5)
+    A = torch.from_numpy(0.5 * (A + A.conj().T)).to(dtype)
+    D, U = t_eigh.eigh_desc(A)
+    assert calls == ([(n, n)] if kernel else [])
+    assert torch.all(D.abs()[:-1] >= D.abs()[1:])
+    err = ((U * D.to(dtype)) @ U.mH - A).abs().max()
+    assert float(err) < 1e-12 * n
+
+
 @pytest.mark.parametrize("chi", [4, 6])
 def test_truncated_eigh_sym(chi):
     A = _with_doublets(seed=2)

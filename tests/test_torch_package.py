@@ -20,6 +20,9 @@ from tpeps_torch.kernels.cholqr import gram, gram_ridge, trsm_right_lower, trsm_
 from tpeps_torch.kernels.corner import corner_apply
 from tpeps_torch.kernels.epilogue import t_epilogue
 from tpeps_torch.kernels.layer import layer_contract
+from tpeps_torch.kernels.ctm_loop import LoopState, ctm_commit
+from tpeps_torch.kernels.ozaki import ozaki_gemm, ozaki_split
+from tpeps_torch.kernels.eigh_small import eigh_small
 from tpeps_torch.kernels.polar import polar_unitary, polar_vjp
 from tpeps_torch.models.j1j2 import J1J2_C4V_BIPARTITE
 
@@ -53,6 +56,10 @@ def _wrapper_calls(make):
     W, X, Y = make((4, 6)), make((6, 5)), make((4, 5))
     P, L = make((12, 4)), make((4, 4))
     nT = make((2, 3, 3))
+    planes = torch.zeros((2, 4, 32), dtype=torch.int8, device=W.device)
+    ctl = torch.zeros(4, dtype=torch.int32, device=W.device)
+    state = LoopState(L, make((2, 2, 4, 4)), P, make((4, 4)), make((4,)), make((1,)),
+                      make((1,)), ctl)
     return {
         "layer_contract": lambda: layer_contract(W, X, Y, n_k=1),
         "corner_apply": lambda: corner_apply(make((12, 12)), P),
@@ -63,6 +70,11 @@ def _wrapper_calls(make):
         "t_epilogue": lambda: t_epilogue(nT),
         "polar_unitary": lambda: polar_unitary(L),
         "polar_vjp": lambda: polar_vjp(L, make((4, 4))),
+        "eigh_small": lambda: eigh_small(L),
+        "ozaki_split": lambda: ozaki_split(X, 2, 7, axis=0),
+        "ozaki_gemm": lambda: ozaki_gemm(planes, make((4,)), planes, make((4,))),
+        "ctm_commit": lambda: ctm_commit(state, make((4, 4)), make((2, 2, 4, 4)), make((12, 4)),
+                                         make((4, 4)), make((4,))),
     }
 
 

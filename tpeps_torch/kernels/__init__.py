@@ -12,7 +12,9 @@ backward ones are kernels of their own (``trsm_right_lower``, ``gram``,
 ``polar_vjp``).
 
 ``LAUNCHES`` counts kernel launches per wrapper; a wrapper adds one where
-it launches its kernel and nowhere else.
+it launches its kernel and nowhere else.  A launch recorded into a CUDA
+graph counts once per replay of the graph, not at capture
+(:class:`tpeps_torch.ctm.c4v.move_graph.MoveGraph`).
 """
 
 from __future__ import annotations
@@ -20,7 +22,8 @@ from __future__ import annotations
 import torch
 
 KERNELS = ("layer_contract", "corner_apply", "gram_ridge", "gram", "trsm_right_lower_h",
-           "trsm_right_lower", "t_epilogue", "polar_unitary", "polar_vjp")
+           "trsm_right_lower", "t_epilogue", "polar_unitary", "polar_vjp", "eigh_small",
+           "ozaki_split", "ozaki_gemm", "ctm_commit")
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 
 
@@ -33,9 +36,10 @@ def launch_counts() -> dict:
     return dict(LAUNCHES)
 
 
-def route(name: str, *tensors: torch.Tensor) -> bool:
+def route(name: str, *tensors: torch.Tensor, check_dtype: bool = True) -> bool:
     """Validate a wrapper's inputs; return True to launch the kernel
-    (CUDA inputs), False for the twin (CPU inputs)."""
+    (CUDA inputs), False for the twin (CPU inputs).  ``check_dtype=False``
+    leaves the dtypes to a wrapper whose inputs mix them."""
     for t in tensors:
         if t.requires_grad:
             raise RuntimeError(f"{name} is forward-only: an input requires grad "
@@ -48,6 +52,8 @@ def route(name: str, *tensors: torch.Tensor) -> bool:
         return False
     if dev.type != "cuda":
         raise ValueError(f"{name}: unsupported device {dev}")
+    if not check_dtype:
+        return True
     dtypes = {t.dtype for t in tensors}
     if len(dtypes) != 1 or next(iter(dtypes)) not in (torch.float32, torch.float64):
         raise TypeError(f"{name}: the CUDA kernel takes float32 or float64 inputs of one "

@@ -22,7 +22,8 @@ from pathlib import Path
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-SOURCES = ("layer_contract.cu", "corner_apply.cu", "cholqr.cu", "t_epilogue.cu", "polar.cu")
+SOURCES = ("layer_contract.cu", "corner_apply.cu", "cholqr.cu", "t_epilogue.cu", "polar.cu",
+           "eigh_small.cu", "ozaki.cu", "ctm_commit.cu")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -43,6 +44,13 @@ _SIGNATURES = {
     "tpeps_polar_unitary_f64": (_vp, _vp, _vp, _vp, _i, _i, _vp),
     "tpeps_polar_vjp_f64": (_vp, _vp, _vp, _i, _vp),
     "tpeps_polar_vjp_f32": (_vp, _vp, _vp, _i, _vp),
+    "tpeps_eigh_small_f64": (_vp, _vp, _vp, _vp, _vp, _i, _i, _vp),
+    "tpeps_ozaki_max_slices": (),
+    "tpeps_ozaki_split": (_vp, _vp, _vp, _i64, _i, _i, _i, _i, _i, _vp),
+    "tpeps_ozaki_gemm": (_vp, _vp, _vp, _vp, _vp, _i64, _i64, _i, _i, _i, _vp),
+    "tpeps_ctm_commit_f64": (_vp,) * 14 + (_i64, _i64, _i64, _i64, _i, _i, _vp),
+    "tpeps_ctm_commit_f32": (_vp,) * 14 + (_i64, _i64, _i64, _i64, _i, _i, _vp),
+    "tpeps_ctm_commit_partials": (),
     "tpeps_t_epilogue_f64": (_vp, _vp, _vp, _i64, _i, _i, _vp),
     "tpeps_t_epilogue_f32": (_vp, _vp, _vp, _i64, _i, _i, _vp),
     "tpeps_t_epilogue_partials": (),
@@ -61,8 +69,10 @@ class KernelLibrary:
             fn = getattr(self.cdll, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-        self.cdll.tpeps_polar_smem.restype = ctypes.c_int64
-        self.cdll.tpeps_polar_smem.argtypes = (_i, _i)
+        for name, argtypes in (("tpeps_polar_smem", (_i, _i)),
+                               ("tpeps_eigh_small_rotations", (_i, _i))):
+            getattr(self.cdll, name).restype = ctypes.c_int64
+            getattr(self.cdll, name).argtypes = argtypes
         self.cdll.tpeps_cuda_error_string.restype = ctypes.c_char_p
         self.cdll.tpeps_cuda_error_string.argtypes = (_i,)
 

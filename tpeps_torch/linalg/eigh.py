@@ -1,10 +1,14 @@
 """Hermitian eigendecomposition helpers with an AD-stable gradient
 (counterpart of tpeps/linalg/eigh.py).
 
-The eigh itself is ``torch.linalg.eigh`` (cuSOLVER on the card).  Its
-gradient is the Lorentzian-broadened one of arXiv:1903.09650, as an
-``autograd.Function``: torch's own eigh backward divides by eigenvalue gaps
-and breaks on the exact multiplets that iPEPS environments carry.
+The eigh itself is the one-block Jacobi kernel ``eigh_small`` for a real
+matrix of size up to ``EIGH_SMALL_MAX`` (169): on the card it reads nothing
+to the host, so a move that calls it captures into a CUDA graph; on the CPU
+it is its twin, ``torch.linalg.eigh``.  A complex or larger matrix goes to
+``torch.linalg.eigh`` (cuSOLVER on the card, which reads its ``info`` to the
+host).  The gradient is the Lorentzian-broadened one of arXiv:1903.09650, as
+an ``autograd.Function``: torch's own eigh backward divides by eigenvalue
+gaps and breaks on the exact multiplets that iPEPS environments carry.
 """
 
 from __future__ import annotations
@@ -12,17 +16,29 @@ from __future__ import annotations
 import torch
 from torch.autograd.function import once_differentiable
 
+from ..kernels.eigh_small import EIGH_SMALL_MAX, eigh_small
+
 
 def safe_inverse(x, epsilon):
     """Lorentzian-regularized reciprocal ``x / (x^2 + eps)``."""
     return x / (x * x + epsilon)
 
 
+def _eigh(A):
+    """The decomposition behind :func:`eigh_desc` (see the module docstring)."""
+    if A.dim() == 2 and not A.is_complex() and A.shape[-1] <= EIGH_SMALL_MAX:
+        return eigh_small(A.contiguous())
+    return torch.linalg.eigh(A)
+
+
 class _EighDesc(torch.autograd.Function):
     @staticmethod
     def forward(ctx, A, ad_decomp_reg):
-        D, U = torch.linalg.eigh(A.detach())
-        order = torch.argsort(-D.abs(), stable=True)
+        D, U = _eigh(A.detach())
+        # ascending first (the kernel's order is arbitrary), then by |D|:
+        # ties keep ascending order, as after a stable sort of eigh's output
+        order = torch.argsort(D, stable=True)
+        order = order[torch.argsort(-D[order].abs(), stable=True)]
         D, U = D[order], U[:, order]
         ctx.save_for_backward(D, U)
         ctx.reg = ad_decomp_reg
@@ -47,7 +63,8 @@ def eigh_desc(A, ad_decomp_reg: float = 1.0e-12):
 
     :param ad_decomp_reg: regularization of the gap inverse in the gradient
     :return: ``(D, U)`` with ``A = U diag(D) U^H``, ``D`` real.  The sort is
-        stable, as JAX's argsort is, so ties keep ascending order.
+        stable, as JAX's argsort is, so ties keep ascending order.  Where the
+        kernel's Jacobi sweeps did not converge, ``D`` and ``U`` are NaN.
     """
     return _EighDesc.apply(A, ad_decomp_reg)
 
