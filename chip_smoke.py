@@ -57,6 +57,27 @@ Phases (any failed check exits non-zero; there is no CPU fallback):
    (``dot_impl="xla"``) for as many moves from the same start: energies
    within 1e-8, corner spectra within 1e-5.
 
+8. the abelian slice, U(1) C4v J1-J2 (j2=0.3) at D=8 (aux sectors
+   {-2:1,-1:2,0:2,1:2,2:1}), chi=160, float64, a random state from a seeded
+   generator (C4v-projected, normalized) written to JSON: (a) K8
+   ``block_permute`` (bit-exact) and ``block_gemm`` on each of a dynamic
+   move's ten tensordots (<= 1e-12 relative) and K9 ``frozen_commit`` (C, T
+   bit-exact, dist2 <= 1e-12 relative) against their twins at the move's
+   shapes, with kernel, twin and bound times (``block_gemm``'s twin is the
+   JAX package's design: one ``torch.bmm`` per shape group and
+   ``index_add_``); the sector SVD drivers timed on the largest +-q sector;
+   (b) the entry point ``tpeps_torch.examples.j1j2.abelian.ctmrg_j1j2_c4v_u1``
+   on that file (8 dynamic moves): ms/move, host planning, the device busy
+   share over two more moves, energy, observables, peak memory, the chi
+   profile; (c) the JAX package's benchmark case: 4 dynamic moves, freeze,
+   ``close_structure``, ``run_frozen(max_iter=10, conv_tol=0)`` (ms per
+   frozen move, split into corner, decompositions, absorption and commit),
+   the same 10 moves dynamic against it (energies within AB_E_FROZEN_TOL,
+   the dynamic profile against ``keep``), ``converge_frozen`` to 1e-8 or 48
+   moves with its energy; (d) D=3, chi=18 card against the CPU twins: 6
+   dynamic moves' spectra and the energy (1e-10), 10 frozen moves (C
+   elementwise, T's magnitudes elementwise, 1e-10).
+
 Phase 2 also holds the kernels of the large-D slice against their twins at
 its shapes: ``eigh_small`` on Rayleigh-Ritz matrices of the D=7 path and on
 a dense random matrix of its largest k, 169 (eigenvalues <= 1e-12
@@ -114,6 +135,10 @@ SOURCES = {  # kernel -> (source, TPU-path function it replaces)
     "ozaki_split": ("tpeps_torch/csrc/ozaki.cu", "tpeps/linalg/ozaki.py:39"),
     "ozaki_gemm": ("tpeps_torch/csrc/ozaki.cu", "tpeps/linalg/ozaki.py:92"),
     "ctm_commit": ("tpeps_torch/csrc/ctm_commit.cu", "tpeps/ctm/c4v/move_tpu.py:258"),
+    "block_permute": ("tpeps_torch/csrc/block_sparse.cu", "tpeps/sym/tensor.py:294"),
+    "block_gemm": ("tpeps_torch/csrc/block_sparse.cu", "tpeps/sym/tensor.py:342"),
+    "frozen_commit": ("tpeps_torch/csrc/frozen_commit.cu",
+                      "tpeps/ctm/c4v_abelian/frozen.py:128"),
 }
 FORWARD = ("layer_contract", "corner_apply", "gram_ridge", "gram", "trsm_right_lower_h",
            "t_epilogue", "polar_unitary", "eigh_small")
@@ -129,6 +154,16 @@ MIXED_E_TOL, MIXED_SPEC_TOL = 1e-8, 1e-5
 # the training path (reference-layout moves and their VJPs): K3 and K6
 TRAIN = ("gram_ridge", "gram", "trsm_right_lower_h", "trsm_right_lower", "polar_unitary",
          "polar_vjp")
+# the abelian slice (phase 8): bench.py's U(1) C4v D=8 profile at chi=160
+AB_PHYS, AB_AUX, AB_CHI = {-1: 1, 1: 1}, {-2: 1, -1: 2, 0: 2, 1: 2, 2: 1}, 160
+AB_ENTRY_MOVES, AB_WARM_MOVES, AB_FROZEN_MOVES = 8, 4, 10
+AB_CONVERGE_ITER, AB_CONVERGE_TOL = 48, 1e-8
+AB_PK = dict(svd_reltol=1e-12, eps_multiplet=1e-12)  # bench.py's projector arguments
+AB_SMALL_AUX, AB_SMALL_CHI, AB_SMALL_TOL = {-1: 1, 0: 1, 1: 1}, 18, 1e-10
+# the frozen against the dynamic engine over the same 10 moves from the
+# frozen start (neither converged): one reading on the H100 gave |dE| 3.3e-6
+AB_E_FROZEN_TOL = 1e-4
+ABELIAN = ("block_permute", "block_gemm", "frozen_commit")
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, FP64 on the tensor cores
 # (DMMA) and on the CUDA cores
 HBM_BPS, FP64_TC, FP64_CC, INT8_TC = 3.35e12, 67e12, 34e12, 1979e12
@@ -973,6 +1008,355 @@ def phase7(dev) -> dict:
     return counts
 
 
+def ab_state(aux, dev, seed=0):
+    """The abelian slice's site: a random U(1) C4v state (uniform per block
+    from a seeded CPU generator, C4v-projected, normalized) on ``dev``."""
+    from tpeps_torch.ipeps.ipeps_abelian import random_c4v_abelian
+    from tpeps_torch.sym.tensor import leg
+
+    st = random_c4v_abelian(torch.Generator().manual_seed(seed), "U1", leg(AB_PHYS), leg(aux), 1)
+    return st.to(dev)
+
+
+def record_dots(fn):
+    """Run ``fn()`` and return its result with the (a, b, axes, out_like) of
+    every tensordot it made."""
+    from tpeps_torch.sym.tensor import AbelianTensor
+
+    calls, orig = [], AbelianTensor.tensordot
+
+    def rec(self, other, axes, out_like=None):
+        calls.append((self, other, axes, out_like))
+        return orig(self, other, axes, out_like)
+
+    with mock.patch.object(AbelianTensor, "tensordot", rec):
+        out = fn()
+    return out, calls
+
+
+def busy_share(fn):
+    """``(wall s, summed device kernel s)`` of ``fn()`` under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev_us = 0.0
+    for evt in prof.key_averages():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            dev_us += getattr(evt, "self_device_time_total", None) or \
+                getattr(evt, "self_cuda_time_total", 0.0)
+    return wall, dev_us / 1e6
+
+
+def ab_energy(model, st, env):
+    from tpeps_torch.ctm.c4v_abelian.env import as_generic
+
+    bp, g = as_generic(st, env)
+    return float(model.energy_per_site(bp, g))
+
+
+def phase8(dev) -> tuple:
+    print(f"== phase 8: the abelian slice, U(1) C4v J1-J2 D=8 chi={AB_CHI} float64", flush=True)
+    from tpeps_torch.ctm.c4v_abelian import ctmrg as ab_ctmrg
+    from tpeps_torch.ctm.c4v_abelian import frozen as ab_frozen
+    from tpeps_torch.ctm.c4v_abelian.env import init_env as ab_init_env
+    from tpeps_torch.examples.j1j2.abelian.ctmrg_j1j2_c4v_u1 import main as ab_main
+    from tpeps_torch.kernels import blocksparse, launch_counts, reset_launch_counts
+    from tpeps_torch.kernels import frozen as kfrozen
+    from tpeps_torch.models.abelian.j1j2 import J1J2_ABELIAN
+    from tpeps_torch.profiling import PhaseTimers
+    from tpeps_torch.sym import tensor as ab_tensor
+    from tpeps_torch.sym.io import write_ipeps_abelian
+
+    rec = {}
+    st = ab_state(AB_AUX, dev)
+    model = J1J2_ABELIAN(j1=J1, j2=J2, device=dev)
+
+    # (b) the entry point on the written state
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "u1_c4v_D8.json")
+        write_ipeps_abelian(st, path)
+        stats, plan_s = [], []
+        move = ab_ctmrg.ctm_move_sl
+
+        def timed_move(*args):  # host seconds spent building plans, per move
+            b0 = ab_tensor.plan_cache_stats()["build_seconds"]
+            out = move(*args)
+            plan_s.append(ab_tensor.plan_cache_stats()["build_seconds"] - b0)
+            return out
+
+        plan0 = ab_tensor.plan_cache_stats()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        with mock.patch.object(ab_ctmrg, "ctm_move_sl", timed_move):
+            e_entry, obs, labels = ab_main(
+                ["--instate", path, "--chi", str(AB_CHI), "--j1", str(J1), "--j2", str(J2),
+                 "--CTMARGS_ctm_max_iter", str(AB_ENTRY_MOVES), "--CTMARGS_ctm_conv_tol", "1e-8",
+                 "--CTMARGS_projector_svd_reltol", "1e-12", "--CTMARGS_projector_eps_multiplet",
+                 "1e-12", "--GLOBALARGS_device", str(dev)], stats=stats)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts_entry = launch_counts()
+    plan1 = ab_tensor.plan_cache_stats()
+    peak_entry = torch.cuda.max_memory_allocated()
+    ctm_s = sum(x["seconds"] for x in stats)
+    for i, (x, ps) in enumerate(zip(stats, plan_s)):
+        print(f"  move {i + 1}: {1000 * x['seconds']:.1f} ms (host planning {1000 * ps:.1f}), "
+              f"chi profile {x['profile']}")
+    print(f"  entry point: {len(stats)} dynamic moves {1000 * ctm_s / len(stats):.1f} ms/move "
+          f"(host wall, spectrum read included), host planning {1000 * sum(plan_s) / len(stats):.1f} "
+          f"ms/move; plans built in "
+          f"{plan1['build_seconds'] - plan0['build_seconds']:.2f} s of the run "
+          f"({plan1['misses'] - plan0['misses']} built, {plan1['hits'] - plan0['hits']} reused); "
+          f"whole run {wall:.2f} s, energy + observables {wall - ctm_s:.2f} s")
+    print(f"  energy {e_entry:.12f}; " + ", ".join(f"{l}={v}" for l, v in zip(labels, obs)))
+    print(f"  peak memory {peak_entry / 2**30:.2f} GiB; launches "
+          + ", ".join(f"{k} {counts_entry[k]}" for k in ABELIAN))
+    check(math.isfinite(e_entry) and all(math.isfinite(abs(complex(v))) for v in obs),
+          "entry point: energy and observables finite")
+    check(counts_entry["block_gemm"] > 0 and counts_entry["block_permute"] > 0,
+          "the entry point launched block_gemm and block_permute")
+
+    # (c) bench's case: dynamic warm-up, freeze, the frozen fixed point
+    a = st.site((0, 0))
+    env = ab_init_env(st, AB_CHI)
+    for _ in range(AB_WARM_MOVES):
+        env = ab_ctmrg.ctm_move_sl(a, env, AB_PK)
+    keep = ab_frozen.freeze_from_env(env)
+    C, T = ab_frozen.close_structure(a, env.C, env.T, dict(keep))
+    print(f"  frozen profile {dict(keep)}; C {len(C.struct.keys)} blocks "
+          f"({C.struct.numel} entries), T {len(T.struct.keys)} ({T.struct.numel}); "
+          f"closed: C {'unchanged' if C.struct is env.C.struct else 'grown'}, "
+          f"T {'unchanged' if T.struct is env.T.struct else 'grown'}")
+    # (a) the move's kernels against their twins, at one dynamic move's shapes
+    _, calls = record_dots(lambda: ab_ctmrg.ctm_move_sl(a, env, AB_PK))
+    check(len(calls) == 10, f"one dynamic move made {len(calls)} tensordots (10)")
+    totals = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, flops=0, bytes=0, pairs=0, groups=0)
+    err_max = 0.0
+    big_perm = None
+    for i, (x, y, axes, out_like) in enumerate(calls):
+        plan, abuf, bbuf = x.dot_operands(y, axes, out_like)
+        g = plan.gemm
+        kern = lambda: blocksparse.block_gemm(abuf, bbuf, torch.empty(plan.out.numel,
+                                              dtype=abuf.dtype, device=dev), g)
+        twin = lambda: blocksparse.block_gemm_twin(abuf, bbuf, torch.empty(
+            plan.out.numel, dtype=abuf.dtype, device=dev), g)
+        out_k, out_t = kern().clone(), twin()
+        err = rel_err(out_k, out_t)
+        err_max = max(err_max, float((out_k - out_t).abs().max()))
+        ms_k, ms_t = min(cuda_ms(kern), cuda_ms(kern)), cuda_ms(twin, reps=2)
+        ngroups = len(g.groups(dev)[0])
+        flops, elems = g.work()
+        b_ms, b_by = bound(8 * elems, flops, FP64_TC)
+        for key, v in (("ms", ms_k), ("plain_ms", ms_t), ("bound_ms", b_ms), ("flops", flops),
+                       ("bytes", 8 * elems), ("pairs", g.npairs), ("groups", ngroups)):
+            totals[key] += v
+        check(err <= TOL[torch.float64],
+              f"block_gemm tensordot {i + 1}: {g.npairs} pairs in {ngroups} shape groups, "
+              f"{g.nout} output blocks, {g.ntiles} tiles, {flops / 1e9:.3f} GFLOP, "
+              f"{8 * elems / 1e6:.1f} MB; kernel {ms_k:.3f} ms, twin {ms_t:.3f} ms, bound "
+              f"{b_ms:.4f} ms ({b_by}); rel err {err:.1e} <= 1e-12")
+        for src, perm in ((x, plan.perm_a), (y, plan.perm_b)):
+            if perm is not None and (big_perm is None or perm.total > big_perm[1].total):
+                big_perm = (src, perm)
+        del abuf, bbuf, out_k, out_t
+    bound_by = "bytes" if totals["bytes"] / HBM_BPS >= totals["flops"] / FP64_TC else "operations"
+    rec["block_gemm"] = {"max_abs_err": err_max, "ms": totals["ms"],
+                         "plain_ms": totals["plain_ms"], "bound_ms": totals["bound_ms"],
+                         "bound_by": bound_by, "library_ms": None,
+                         "gflop_per_move": totals["flops"] / 1e9,
+                         "mb_per_move": totals["bytes"] / 1e6, "pairs_per_move": totals["pairs"],
+                         "shape_groups_per_move": totals["groups"]}
+    print(f"  block_gemm, the move's 10 tensordots: kernel {totals['ms']:.3f} ms, twin (the JAX "
+          f"package's design: one bmm per shape group + index_add_) {totals['plain_ms']:.3f} ms, "
+          f"bound {totals['bound_ms']:.4f} ms (sum of the calls'), {totals['pairs']} pairs in "
+          f"{totals['groups']} groups, {totals['flops'] / 1e9:.2f} GFLOP, "
+          f"{totals['bytes'] / 1e9:.2f} GB; library: none (no one torch call computes a "
+          "charge-matched grouped contraction)")
+    src, table = big_perm
+    dst_k = torch.empty(table.total, dtype=src.data.dtype, device=dev)
+    dst_t = torch.empty_like(dst_k)
+    blocksparse.block_permute(src.data, dst_k, table)
+    blocksparse.block_permute_twin(src.data, dst_t, table)
+    check(torch.equal(dst_k, dst_t), f"block_permute of the largest operand ({table.nblk} blocks, "
+                                     f"{table.total} entries, rank {table.rank}): bit-exact")
+    time_case(rec, "block_permute", lambda: blocksparse.block_permute(src.data, dst_k, table),
+              lambda: blocksparse.block_permute_twin(src.data, dst_t, table), None,
+              2 * 8 * table.total, 0, FP64_CC)
+    rec["block_permute"]["library_ms"] = None
+    # the sector gather of the corner (K9's first step) on block_permute
+    M = ab_ctmrg.c2x2_sl(a, env.C, env.T)
+    splan = ab_tensor._sector_plan(M, (0, 1, 2), (3, 4, 5))
+    gk = torch.zeros(splan.numel, dtype=M.data.dtype, device=dev)
+    gt = torch.zeros_like(gk)
+    blocksparse.block_permute(M.data, gk, splan.table)
+    blocksparse.block_permute_twin(M.data, gt, splan.table)
+    sizes = sorted(((q, v[7]) for q, v in splan.sectors.items()), key=lambda x: -x[1])
+    check(torch.equal(gk, gt), f"block_permute sector gather of M ({len(M.struct.keys)} blocks "
+                               f"into {len(sizes)} sector matrices, sides {[s for _, s in sizes]}): "
+                               "bit-exact")
+    # the sector decompositions: SVD drivers on the largest +-q sector, eigh on q=0
+    qbig = next(q for q, _ in sizes if q != 0)
+    base, R, Cc = splan.sectors[qbig][6:9]
+    Mq = gk[base:base + R * Cc].view(R, Cc)
+    base0, R0, C0 = splan.sectors[0][6:9]
+    M0 = gk[base0:base0 + R0 * C0].view(R0, C0)
+    drv = {d: cuda_ms(lambda d=d: torch.linalg.svd(Mq, full_matrices=False, driver=d), reps=2)
+           for d in ("gesvd", "gesvdj", "gesvda")}
+    ms_eigh = cuda_ms(lambda: torch.linalg.eigh(0.5 * (M0 + M0.mT)), reps=2)
+    print(f"  sector SVD of q={qbig} ({R} x {Cc}): " + ", ".join(f"{d} {v:.2f} ms" for d, v in
+                                                               drv.items())
+          + f"; eigh of q=0 ({R0} x {C0}) {ms_eigh:.2f} ms")
+    # each driver against gesvd on every +-q sector: all singular values
+    # (relative to the largest) and the kept ones' gauge-fixed vectors
+    from tpeps_torch.linalg.svd import fix_svd_signs
+    for d in ("gesvdj", "gesvda"):
+        e_s = e_k = e_u = 0.0
+        for q, v in splan.sectors.items():
+            k = dict(keep).get(q, 0)
+            if q == 0 or k == 0:
+                continue
+            Mx = gk[v[6]:v[6] + v[7] * v[8]].view(v[7], v[8])
+            U1, S1, V1 = torch.linalg.svd(Mx, full_matrices=False, driver="gesvd")
+            U2, S2, V2 = torch.linalg.svd(Mx, full_matrices=False, driver=d)
+            U1, V1 = fix_svd_signs(U1, V1)
+            U2, V2 = fix_svd_signs(U2, V2)
+            e_s = max(e_s, float((S1 - S2).abs().max() / S1[0]))
+            e_k = max(e_k, float(((S1[:k] - S2[:k]).abs() / S1[:k]).max()))
+            e_u = max(e_u, float((U1[:, :k].abs() - U2[:, :k].abs()).abs().max()),
+                      float((V1[:k].abs() - V2[:k].abs()).abs().max()))
+        print(f"  {d} against gesvd on the +-q sectors: singular values {e_s:.1e} (of the "
+              f"largest), kept ones {e_k:.1e} relative, kept vectors' magnitudes {e_u:.1e}")
+    del M, gk, gt, Mq, M0, calls
+    # frozen_commit against its twin on one frozen move's raw outputs
+    nC, nT = ab_frozen._move_raw(a, C, T, dict(keep))
+    pC = ab_frozen.partner_index(C.struct, ab_frozen.C_PARTNER, dev)
+    pT = ab_frozen.partner_index(T.struct, ab_frozen.T_PARTNER, dev)
+    sk = kfrozen.frozen_state(C.data, T.data, AB_FROZEN_MOVES, 0.0)
+    stw = kfrozen.frozen_state(C.data, T.data, AB_FROZEN_MOVES, 0.0)
+    kfrozen.frozen_commit(sk, nC.data, nT.data, pC, pT)
+    kfrozen.frozen_commit_twin(stw, nC.data, nT.data, pC, pT)
+    e_d = rel_err(sk.dist2, stw.dist2)
+    err_commit = max(float((x - y).abs().max())
+                     for x, y in ((sk.C, stw.C), (sk.T, stw.T), (sk.dist2, stw.dist2)))
+    check(torch.equal(sk.C, stw.C) and torch.equal(sk.T, stw.T) and e_d <= TOL[torch.float64]
+          and torch.equal(sk.ctl[:2], stw.ctl[:2]),
+          f"frozen_commit: C, T bit-exact, (i, done) {sk.ctl[:2].tolist()}, dist2 "
+          f"{float(sk.dist2):.6e} rel err {e_d:.1e} <= 1e-12")
+    nel = C.struct.numel + T.struct.numel
+    sk2 = kfrozen.frozen_state(C.data, T.data, 10**9, -1.0)
+    st2 = kfrozen.frozen_state(C.data, T.data, 10**9, -1.0)
+    time_case(rec, "frozen_commit",
+              lambda: (kfrozen.frozen_commit(sk2, nC.data, nT.data, pC, pT), sk2.T)[1],
+              lambda: (kfrozen.frozen_commit_twin(st2, nC.data, nT.data, pC, pT), st2.T)[1],
+              None, 8 * 5 * nel, 6 * nel, FP64_CC)
+    rec["frozen_commit"]["max_abs_err"] = max(rec["frozen_commit"]["max_abs_err"], err_commit)
+    del nC, nT
+
+    # bench's case: 10 frozen moves (first call: host plans; second timed)
+    ab_frozen.run_frozen(a, C, T, keep, max_iter=AB_FROZEN_MOVES, conv_tol=0.0)
+    timers = PhaseTimers()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    Cf, Tf, nf, d2f = ab_frozen.run_frozen(a, C, T, keep, max_iter=AB_FROZEN_MOVES,
+                                           conv_tol=0.0, timers=timers)
+    torch.cuda.synchronize()
+    ms_frozen = 1000 * (time.perf_counter() - t0) / nf
+    split = {k: 1000 * v / nf for k, v in timers.t.items()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ab_frozen.run_frozen(a, C, T, keep, max_iter=AB_FROZEN_MOVES, conv_tol=0.0)
+    torch.cuda.synchronize()
+    ms_frozen_plain = 1000 * (time.perf_counter() - t0) / nf
+    wall_b, dev_b = busy_share(lambda: ab_frozen.run_frozen(a, C, T, keep, max_iter=2,
+                                                            conv_tol=0.0))
+    print(f"  run_frozen(max_iter={AB_FROZEN_MOVES}, conv_tol=0): {nf} moves, dist2 {d2f:.3e}, "
+          f"{ms_frozen_plain:.2f} ms per frozen move (host wall); with phase events "
+          f"{ms_frozen:.2f}: " + ", ".join(f"{k} {v:.2f}" for k, v in split.items())
+          + f" ms; busy share over 2 moves {dev_b / wall_b:.3f} ({1000 * dev_b / 2:.2f} ms "
+          "device per move)")
+    rec["frozen_commit"]["ms_per_frozen_move"] = ms_frozen_plain
+    rec["frozen_commit"]["frozen_move_split_ms"] = split
+    # the same moves on the dynamic engine, from the same start
+    env_d = ab_ctmrg.ENV_C4V_ABELIAN(AB_CHI, env.C, env.T)
+    same_profile = True
+    t0 = time.perf_counter()
+    for _ in range(nf):
+        env_d = ab_ctmrg.ctm_move_sl(a, env_d, AB_PK)
+        same_profile &= tuple(sorted(env_d.C.legs[0].charges)) == tuple(keep)
+    torch.cuda.synchronize()
+    ms_dyn = 1000 * (time.perf_counter() - t0) / nf
+    wall_d, dev_d = busy_share(lambda: ab_ctmrg.ctm_move_sl(a, env_d, AB_PK))
+    e_fz = ab_energy(model, st, ab_ctmrg.ENV_C4V_ABELIAN(AB_CHI, Cf, Tf))
+    e_dy = ab_energy(model, st, env_d)
+    print(f"  {nf} dynamic moves from the same start: {ms_dyn:.2f} ms/move (plans cached), "
+          f"profile stayed equal to keep: {same_profile}; one dynamic move busy share "
+          f"{dev_d / wall_d:.3f} ({1000 * dev_d:.2f} ms device of {1000 * wall_d:.2f} ms)")
+    check(abs(e_fz - e_dy) <= AB_E_FROZEN_TOL,
+          f"energy after {nf} moves: frozen {e_fz:.12f}, dynamic {e_dy:.12f}, |dE| "
+          f"{abs(e_fz - e_dy):.2e} <= {AB_E_FROZEN_TOL:.0e}")
+    # converge_frozen (forward) to 1e-8 or 48 moves: the frozen engine's main path
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    env_c = ab_frozen.converge_frozen(a, env, keep, max_iter=AB_CONVERGE_ITER,
+                                      conv_tol=AB_CONVERGE_TOL)
+    torch.cuda.synchronize()
+    t_conv = time.perf_counter() - t0
+    counts_frozen = launch_counts()
+    e_conv = ab_energy(model, st, env_c)
+    print(f"  converge_frozen (max_iter {AB_CONVERGE_ITER}, conv_tol {AB_CONVERGE_TOL:.0e}): "
+          f"{t_conv:.2f} s, energy {e_conv:.12f}; launches "
+          + ", ".join(f"{k} {counts_frozen[k]}" for k in ABELIAN))
+    check(math.isfinite(e_conv) and all(counts_frozen[k] > 0 for k in ABELIAN),
+          "converge_frozen: energy finite, block_permute, block_gemm and frozen_commit launched")
+    del Cf, Tf, env_c, env_d, C, T, env
+
+    # (d) D=3 chi=18: card against the CPU twins
+    res = []
+    for where in ("cpu", dev):
+        st_s = ab_state(AB_SMALL_AUX, where, seed=1)
+        a_s = st_s.site((0, 0))
+        env_s = ab_init_env(st_s, AB_SMALL_CHI)
+        specs = []
+        for _ in range(6):
+            env_s = ab_ctmrg.ctm_move_sl(a_s, env_s, AB_PK)
+            specs.append(env_s.get_spectrum())
+        e_s = ab_energy(J1J2_ABELIAN(j1=J1, j2=J2, device=where), st_s, env_s)
+        res.append((specs, e_s, env_s, a_s))
+    (sp_c, e_c, env_c, a_c), (sp_d, e_d, _, _) = res
+    d_spec = max(float(np.abs(x / x[0] - y / y[0]).max()) for x, y in zip(sp_c, sp_d))
+    check(d_spec <= AB_SMALL_TOL and abs(e_c - e_d) <= AB_SMALL_TOL,
+          f"D=3 chi={AB_SMALL_CHI} card vs CPU: 6 dynamic moves' spectra max diff {d_spec:.2e}, "
+          f"energy |dE| {abs(e_c - e_d):.2e} <= {AB_SMALL_TOL:.0e}")
+    keep_s = ab_frozen.freeze_from_env(env_c)
+    out = []
+    for where in ("cpu", dev):
+        Cs, Ts = env_c.C.to(where), env_c.T.to(where)
+        Cs, Ts = ab_frozen.close_structure(a_c.to(where), Cs, Ts, dict(keep_s))
+        out.append(ab_frozen.run_frozen(a_c.to(where), Cs, Ts, keep_s,
+                                        max_iter=AB_FROZEN_MOVES, conv_tol=0.0))
+    (Cc, Tc, nc, dc), (Cd, Td, nd, dd) = out
+    # T by magnitudes (as the CPU tests' abs_diff): the frozen sign fixing
+    # may flip a column's sign where the ket/bra symmetry ties two entries
+    check(Cc.struct.keys == Cd.struct.keys and Tc.struct.keys == Td.struct.keys,
+          "D=3 frozen card vs CPU: the same block sets")
+    e_C = float((Cc.data - Cd.data.cpu()).abs().max())
+    e_T = float((Tc.data.abs() - Td.data.cpu().abs()).abs().max())
+    e_T_signed = float((Tc.data - Td.data.cpu()).abs().max())
+    check(nc == nd and e_C <= AB_SMALL_TOL and e_T <= AB_SMALL_TOL
+          and abs(dc - dd) <= AB_SMALL_TOL * max(dc, 1e-300),
+          f"D=3 frozen {nc} moves card vs CPU: C max diff {e_C:.2e}, |T| elementwise {e_T:.2e} "
+          f"<= {AB_SMALL_TOL:.0e} (T signed {e_T_signed:.2e}), dist2 {dd:.6e} vs {dc:.6e}")
+    return rec, counts_entry, counts_frozen
+
+
 def main() -> None:
     smi = phase0()
     dev = torch.device("cuda", 0)
@@ -984,17 +1368,24 @@ def main() -> None:
     counts_train = phase5(dev)
     phase6(dev)
     counts_large = phase7(dev)
+    rec_ab, counts_ab, counts_fz = phase8(dev)
+    rec.update(rec_ab)
     # launches: on the training path for its kernels, on the large-D slice
-    # for K5/K7, else on the forward path (K1, K2, K4 and eigh_small)
+    # for K5/K7, on the abelian entry point for K8 and converge_frozen for
+    # K9, else on the forward path (K1, K2, K4 and eigh_small)
     main_run = lambda name: (counts_train if name in TRAIN
-                             else counts_large if name in LARGE_D else counts_fwd)
+                             else counts_large if name in LARGE_D
+                             else counts_fz if name == "frozen_commit"
+                             else counts_ab if name in ABELIAN else counts_fwd)
     kernels = [
         {"name": name, "route": "cuda", "source": SOURCES[name][0],
          "replaces": SOURCES[name][1],
          "launches": main_run(name)[name],
          "launches_forward_slice": counts_fwd[name],
          "launches_training_slice": counts_train[name],
-         "launches_large_d_slice": counts_large[name], **rec[name]}
+         "launches_large_d_slice": counts_large[name],
+         "launches_abelian_entry_point": counts_ab[name],
+         "launches_abelian_frozen": counts_fz[name], **rec[name]}
         for name in SOURCES
     ]
     print(smi)

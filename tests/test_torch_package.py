@@ -24,6 +24,8 @@ from tpeps_torch.kernels.ctm_loop import LoopState, ctm_commit
 from tpeps_torch.kernels.ozaki import ozaki_gemm, ozaki_split
 from tpeps_torch.kernels.eigh_small import eigh_small
 from tpeps_torch.kernels.polar import polar_unitary, polar_vjp
+from tpeps_torch.kernels.blocksparse import GemmTable, PermuteTable, block_gemm, block_permute
+from tpeps_torch.kernels.frozen import FrozenState, frozen_commit
 from tpeps_torch.models.j1j2 import J1J2_C4V_BIPARTITE
 
 REPO = Path(__file__).resolve().parent.parent
@@ -60,6 +62,10 @@ def _wrapper_calls(make):
     ctl = torch.zeros(4, dtype=torch.int32, device=W.device)
     state = LoopState(L, make((2, 2, 4, 4)), P, make((4, 4)), make((4,)), make((1,)),
                       make((1,)), ctl)
+    ptable = PermuteTable([0], [0], [[2, 3]], [[1, 2]], [[3, 1]])
+    gtable = GemmTable([0], [2], [3], [0, 1], [0], [0], [4], [1])
+    fstate = FrozenState(make((6,)), make((8,)), make((1,)), make((1,)), ctl)
+    pidx = torch.zeros(6, dtype=torch.int64, device=W.device)
     return {
         "layer_contract": lambda: layer_contract(W, X, Y, n_k=1),
         "corner_apply": lambda: corner_apply(make((12, 12)), P),
@@ -75,6 +81,11 @@ def _wrapper_calls(make):
         "ozaki_gemm": lambda: ozaki_gemm(planes, make((4,)), planes, make((4,))),
         "ctm_commit": lambda: ctm_commit(state, make((4, 4)), make((2, 2, 4, 4)), make((12, 4)),
                                          make((4, 4)), make((4,))),
+        "block_permute": lambda: block_permute(make((6,)), make((6,)), ptable),
+        "block_gemm": lambda: block_gemm(make((8,)), make((12,)), make((6,)), gtable),
+        "frozen_commit": lambda: frozen_commit(fstate, make((6,)), make((8,)), pidx,
+                                               torch.zeros(8, dtype=torch.int64,
+                                                           device=W.device)),
     }
 
 

@@ -13,7 +13,9 @@ factored CTMRG move (forward) with the JAX package's large-D drivers (CUDA
 graphs of moves, the int8 Ozaki float64 product, the mixed-precision
 driver), the differentiable reference-layout move with implicit and
 checkpointed gradients, the J1-J2 energy, L-BFGS and the example driver
-(:mod:`tpeps_torch.examples`).  Its device kernels live in
+(:mod:`tpeps_torch.examples`); and the U(1)/Z2 block-sparse tensors
+(:mod:`tpeps_torch.sym`) with the C4v abelian CTMRG, dynamic and frozen,
+forward.  Its device kernels live in
 :mod:`tpeps_torch.kernels` with sources in ``tpeps_torch/csrc``.
 """
 

@@ -56,3 +56,41 @@ def config_from_dict(d: dict) -> _config.Config:
             raise KeyError(f"{group}: unknown fields {sorted(unknown)}")
         kwargs[group] = cls(**values)
     return _config.Config(**kwargs)
+
+
+def abelian_to_torch(spec, *, device="cuda", dtype=None):
+    """An :class:`~tpeps_torch.sym.tensor.AbelianTensor` from ``(sym,
+    signature, legs, pshifts, n, fermionic, blocks)``: ``legs`` as
+    ``((charge, dim), ...)`` per leg, ``blocks`` as ``{charges: np.ndarray}``
+    (the JAX package's tensor goes in as ``(t.sym, t.signature,
+    [l.charges for l in t.legs], [l.pshift for l in t.legs], t.n,
+    t.fermionic, {q: np.asarray(b)})``)."""
+    from ..sym.tensor import AbelianTensor, LegCharges
+
+    sym, signature, legs, pshifts, n, fermionic, blocks = spec
+    blocks = {tuple(q): torch.as_tensor(np.array(b, copy=True)) for q, b in blocks.items()}
+    if dtype is None:
+        dtype = torch.complex128 if any(b.is_complex() for b in blocks.values()) else torch.float64
+    legs = tuple(LegCharges(tuple((q, int(d)) for q, d in l), int(p)) for l, p in zip(legs, pshifts))
+    return AbelianTensor(sym, tuple(signature), legs, n, blocks, dtype, fermionic=fermionic,
+                         device=device)
+
+
+def abelian_to_numpy(t):
+    """Inverse of :func:`abelian_to_torch`."""
+    return (t.sym, t.signature, tuple(l.charges for l in t.legs), tuple(l.pshift for l in t.legs),
+            t.n, t.fermionic, t.numpy_blocks())
+
+
+def env_c4v_abelian_to_torch(chi, C, T, *, device="cuda"):
+    """An ``ENV_C4V_ABELIAN`` from the specs of ``C`` and ``T`` (see
+    :func:`abelian_to_torch`)."""
+    from ..ctm.c4v_abelian.env import ENV_C4V_ABELIAN
+
+    return ENV_C4V_ABELIAN(chi, abelian_to_torch(C, device=device),
+                           abelian_to_torch(T, device=device))
+
+
+def env_c4v_abelian_to_numpy(env):
+    """``(chi, C spec, T spec)`` of an ``ENV_C4V_ABELIAN``."""
+    return env.chi, abelian_to_numpy(env.C), abelian_to_numpy(env.T)

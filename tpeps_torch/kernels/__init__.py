@@ -1,5 +1,5 @@
-"""Hand-written Hopper kernels of the C4v move and of its gradient, each
-with a plain PyTorch twin.
+"""Hand-written Hopper kernels of the C4v move and of its gradient, and of
+the abelian (block-sparse) CTMRG, each with a plain PyTorch twin.
 
 Every wrapper routes by the device of its inputs: CPU tensors go to the
 twin (the same math in plain torch ops, used by the CPU tests), CUDA
@@ -23,7 +23,8 @@ import torch
 
 KERNELS = ("layer_contract", "corner_apply", "gram_ridge", "gram", "trsm_right_lower_h",
            "trsm_right_lower", "t_epilogue", "polar_unitary", "polar_vjp", "eigh_small",
-           "ozaki_split", "ozaki_gemm", "ctm_commit")
+           "ozaki_split", "ozaki_gemm", "ctm_commit", "block_permute", "block_gemm",
+           "frozen_commit")
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 
 

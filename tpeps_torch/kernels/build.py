@@ -23,7 +23,7 @@ PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 SOURCES = ("layer_contract.cu", "corner_apply.cu", "cholqr.cu", "t_epilogue.cu", "polar.cu",
-           "eigh_small.cu", "ozaki.cu", "ctm_commit.cu")
+           "eigh_small.cu", "ozaki.cu", "ctm_commit.cu", "block_sparse.cu", "frozen_commit.cu")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -54,6 +54,14 @@ _SIGNATURES = {
     "tpeps_t_epilogue_f64": (_vp, _vp, _vp, _i64, _i, _i, _vp),
     "tpeps_t_epilogue_f32": (_vp, _vp, _vp, _i64, _i, _i, _vp),
     "tpeps_t_epilogue_partials": (),
+    "tpeps_block_permute_f64": (_vp,) * 9 + (_i, _i, _i64, _vp),
+    "tpeps_block_permute_f32": (_vp,) * 9 + (_i, _i, _i64, _vp),
+    "tpeps_block_permute_max_rank": (),
+    "tpeps_block_gemm_f64": (_vp,) * 12 + (_i, _vp),
+    "tpeps_block_gemm_f32": (_vp,) * 12 + (_i, _vp),
+    "tpeps_frozen_commit_f64": (_vp,) * 11 + (_i64, _i64, _vp),
+    "tpeps_frozen_commit_f32": (_vp,) * 11 + (_i64, _i64, _vp),
+    "tpeps_frozen_commit_partials": (),
 }
 
 

@@ -1,8 +1,9 @@
-"""Spin-1/2 J1-J2(-J3) model on the 1-site C4v ansatz with bipartite
-sublattice rotation (counterpart of ``J1J2`` and ``J1J2_C4V_BIPARTITE``
-in tpeps/models/j1j2.py, restricted to what the C4v energy and
-observables use).  The operators live on ``device``: the card unless the
-caller asks for the CPU."""
+"""Spin-1/2 J1-J2(-J3) model (counterpart of ``J1J2`` and
+``J1J2_C4V_BIPARTITE`` in tpeps/models/j1j2.py): ``J1J2`` builds the
+Hamiltonian terms (the 2x2-plaquette term ``get_hp`` that the abelian model
+contracts with its RDMs, the bond operators, the observables' operators);
+``J1J2_C4V_BIPARTITE`` adds the C4v energy and observables.  The operators
+live on ``device``: the card unless the caller asks for the CPU."""
 
 from __future__ import annotations
 
@@ -23,8 +24,8 @@ def _contract(rho, op):
     return torch.einsum("ijkl,ijkl", rho, op)
 
 
-class J1J2_C4V_BIPARTITE:
-    """J1-J2-J3 on the square lattice, 1-site C4v ansatz, bipartite rotation."""
+class J1J2:
+    """Hamiltonian terms of the J1-J2-J3 model on the square lattice."""
 
     def __init__(self, j1=1.0, j2=0.0, j3=0.0, hz_stag=0.0, delta_zz=1.0,
                  h_uni=(0.0, 0.0, 0.0), dtype=torch.float64, device="cuda"):
@@ -40,6 +41,7 @@ class J1J2_C4V_BIPARTITE:
             raise ValueError("the h^y term requires a complex dtype")
 
         s2 = su2.SU2(self.phys_dim, dtype=dtype, device=device)
+        id2, id3 = s2.I_N(N=2), s2.I_N(N=3)
         kron = lambda x, y: torch.einsum("ij,ab->iajb", x, y)
         self.SS_delta_zz = s2.SS(xyz=(delta_zz, 1.0, 1.0))
         self.SS = s2.SS()
@@ -53,7 +55,46 @@ class J1J2_C4V_BIPARTITE:
         self.SS_delta_zz_rot = rot2(self.SS_delta_zz)
         self.hz_2x1_rot = rot2(hz_2x1_nn)
         self.huni_2x1_rot = rot2(huni_2x1_nn)
+
+        # plaquette terms h_p such that e = <h_p> (reference j1j2.py:123-147)
+        h2x2_SS_dzz = torch.einsum("ijab,klcd->ijklabcd", self.SS_delta_zz, id2)
+        h2x2_SS = torch.einsum("ijab,klcd->ijklabcd", self.SS, id2)
+        h2x2_hz = torch.einsum("ia,jklbcd->ijklabcd", s2.SZ(), id3)
+        h2x2_hu = torch.einsum("ia,jklbcd->ijklabcd", h_uni_1x1, id3)
+
+        def get_hp(coord):
+            perm = lambda t, p: t.permute(p)
+            return 0.5 * self.j1 * (
+                h2x2_SS_dzz
+                + perm(h2x2_SS_dzz, (0, 2, 1, 3, 4, 6, 5, 7))
+                + perm(h2x2_SS_dzz, (2, 3, 0, 1, 6, 7, 4, 5))
+                + perm(h2x2_SS_dzz, (3, 1, 2, 0, 7, 5, 6, 4))
+            ) + self.j2 * (
+                perm(h2x2_SS, (0, 3, 2, 1, 4, 7, 6, 5))
+                + perm(h2x2_SS, (2, 1, 0, 3, 6, 5, 4, 7))
+            ) - 0.25 * self.hz_stag * ((-1) ** (coord[0] + coord[1])) * (
+                h2x2_hz
+                - perm(h2x2_hz, (3, 0, 1, 2, 7, 4, 5, 6))
+                - perm(h2x2_hz, (2, 3, 0, 1, 6, 7, 4, 5))
+                + perm(h2x2_hz, (1, 2, 3, 0, 5, 6, 7, 4))
+            ) + 0.25 * (
+                h2x2_hu
+                + perm(h2x2_hu, (2, 3, 0, 1, 6, 7, 4, 5))
+                + perm(h2x2_hu, (3, 0, 1, 2, 7, 4, 5, 6))
+                + perm(h2x2_hu, (1, 2, 3, 0, 5, 6, 7, 4))
+            )
+
+        self.get_hp = get_hp
         self.obs_ops = {"sz": s2.SZ(), "sp": s2.SP(), "sm": s2.SM()}
+
+
+class J1J2_C4V_BIPARTITE(J1J2):
+    """J1-J2-J3 on the square lattice, 1-site C4v ansatz, bipartite rotation."""
+
+    def __init__(self, j1=1.0, j2=0.0, j3=0.0, hz_stag=0.0, delta_zz=1.0,
+                 h_uni=(0.0, 0.0, 0.0), dtype=torch.float64, device="cuda"):
+        super().__init__(j1=j1, j2=j2, j3=j3, hz_stag=hz_stag, delta_zz=delta_zz,
+                         h_uni=h_uni, dtype=dtype, device=device)
 
     def energy_1x1_lowmem(self, a, env: EnvC4v):
         """Energy per site from the NN + NNN (+ 3x1) RDMs; differentiable in
