@@ -75,8 +75,30 @@ Phases (any failed check exits non-zero; there is no CPU fallback):
    the same 10 moves dynamic against it (energies within AB_E_FROZEN_TOL,
    the dynamic profile against ``keep``), ``converge_frozen`` to 1e-8 or 48
    moves with its energy; (d) D=3, chi=18 card against the CPU twins: 6
-   dynamic moves' spectra and the energy (1e-10), 10 frozen moves (C
-   elementwise, T's magnitudes elementwise, 1e-10).
+   dynamic moves' spectra and the energy (1e-10), one more move's busy share
+   read three ways, 10 frozen moves (C elementwise, T's magnitudes
+   elementwise, 1e-10).
+9. the abelian training slice on phase 8's D=8 chi=160 state: (a) at a
+   frozen move's shapes, the backward tables of its ten tensordots
+   (``block_gemm`` on the dA and dB tables, <= 1e-12 relative;
+   ``block_permute`` on the largest operand's inverse table, bit-exact),
+   ``frozen_epilogue_vjp`` (<= 1e-12 relative) and ``adjoint_commit`` (one
+   step <= 1e-12 relative; the loop on crafted |u|^2 sequences, counters
+   bit-exact) against their twins, with
+   kernel, twin and bound times; (b) one closure of
+   ``optimize_c4v_abelian`` (the context: AB_CLOSURE_MOVES dynamic moves and
+   plans; the frozen forward; the adjoint's iterations, ms each, converged or
+   diverged, R != 1; the energy forward and backward; peak memory; the
+   central difference along the gradient, > 0, next to |g|; at the
+   closure's frozen fixed point the kept sector gaps, one more move's drift
+   and one move's VJP norm; the backward's device busy share on a second
+   closure); (c) two L-BFGS epochs
+   of the entry point ``tpeps_torch.examples.j1j2.abelian.optim_j1j2_c4v_u1``
+   (``--chi 160 --j2 0.3 --opt_max_iter 2 --OPTARGS_line_search
+   backtracking --CTMARGS_ctm_max_iter AB_GRAD_MOVES``) on the written state:
+   losses finite and not rising, every kernel of the path launched; (d)
+   U(1) D=3 chi=9: the gradient on the card against the CPU twins' from one
+   CPU-built closed (C0, T0), 1e-8 relative.
 
 Phase 2 also holds the kernels of the large-D slice against their twins at
 its shapes: ``eigh_small`` on Rayleigh-Ritz matrices of the D=7 path and on
@@ -139,6 +161,13 @@ SOURCES = {  # kernel -> (source, TPU-path function it replaces)
     "block_gemm": ("tpeps_torch/csrc/block_sparse.cu", "tpeps/sym/tensor.py:342"),
     "frozen_commit": ("tpeps_torch/csrc/frozen_commit.cu",
                       "tpeps/ctm/c4v_abelian/frozen.py:128"),
+    # the abelian training path: K8 on backward tables, K9's backward
+    "block_permute_grad": ("tpeps_torch/csrc/block_sparse.cu", "tpeps/sym/tensor.py:294"),
+    "block_gemm_grad": ("tpeps_torch/csrc/block_sparse.cu", "tpeps/sym/tensor.py:435"),
+    "frozen_epilogue_vjp": ("tpeps_torch/csrc/frozen_commit.cu",
+                            "tpeps/ctm/c4v_abelian/frozen.py:73"),
+    "adjoint_commit": ("tpeps_torch/csrc/frozen_commit.cu",
+                       "tpeps/ctm/c4v_abelian/frozen.py:201"),
 }
 FORWARD = ("layer_contract", "corner_apply", "gram_ridge", "gram", "trsm_right_lower_h",
            "t_epilogue", "polar_unitary", "eigh_small")
@@ -164,6 +193,18 @@ AB_SMALL_AUX, AB_SMALL_CHI, AB_SMALL_TOL = {-1: 1, 0: 1, 1: 1}, 18, 1e-10
 # frozen start (neither converged): one reading on the H100 gave |dE| 3.3e-6
 AB_E_FROZEN_TOL = 1e-4
 ABELIAN = ("block_permute", "block_gemm", "frozen_commit")
+# the abelian training path (phase 9): ctm_max_iter of its contexts and
+# frozen fixed points (the dynamic moves per context and the frozen moves per
+# loss) in the two epochs and in the one closure, the D=3 card-vs-CPU
+# gradient's chi, frozen moves and tolerance
+AB_GRAD_MOVES, AB_CLOSURE_MOVES = 24, 12
+AB_TRAIN = ("block_permute", "block_gemm", "block_permute_grad", "block_gemm_grad",
+            "frozen_commit", "frozen_epilogue_vjp", "adjoint_commit")
+AB_GRAD_SMALL_CHI, AB_GRAD_SMALL_ITER, AB_GRAD_SMALL_TOL = 9, 40, 1e-8
+# crafted adjoint sequences: (lambda_C, lambda_T, |ybar_T| / |ybar_C|, max_iter)
+AB_ADJ_CASES = {"converging": (0.5, 0.5, 1.0, 100), "four_growths": (1.2, 1.2, 1.0, 100),
+                "blow_up": (200.0, 0.5, 1.0, 100), "max_iter": (0.99, 0.99, 1.0, 7),
+                "decay_then_growth": (0.3, 1.5, 1e-3, 100)}
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, FP64 on the tensor cores
 # (DMMA) and on the CUDA cores
 HBM_BPS, FP64_TC, FP64_CC, INT8_TC = 3.35e12, 67e12, 34e12, 1979e12
@@ -1034,8 +1075,16 @@ def record_dots(fn):
     return out, calls
 
 
-def busy_share(fn):
-    """``(wall s, summed device kernel s)`` of ``fn()`` under torch.profiler."""
+def busy_share(fn, key_averages=False):
+    """``(wall s, busy s)`` of ``fn()`` under torch.profiler: the union of the
+    [start, end) intervals of the CUDA-device activities (kernels, copies,
+    sets) in the raw trace, so that activities overlapping on different
+    streams count once.  The raw trace, because a frozen move's cuSOLVER SVDs
+    make over a hundred thousand events and building the profiler's per-event
+    objects for them takes minutes.  With ``key_averages`` also ``(summed s,
+    key_averages s)``: the plain sum of the same durations, and the sum of
+    the self device times of ``prof.key_averages()`` (the earlier reading;
+    small traces only)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1044,12 +1093,22 @@ def busy_share(fn):
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    dev_us = 0.0
-    for evt in prof.key_averages():
-        if evt.device_type == torch.autograd.DeviceType.CUDA:
-            dev_us += getattr(evt, "self_device_time_total", None) or \
-                getattr(evt, "self_cuda_time_total", 0.0)
-    return wall, dev_us / 1e6
+    cuda = torch.autograd.DeviceType.CUDA
+    spans = sorted((e.start_ns(), e.end_ns()) for e in prof.profiler.kineto_results.events()
+                   if e.device_type() == cuda)
+    busy_ns, end = 0, None
+    for a, b in spans:
+        if end is None or a > end:
+            busy_ns, end = busy_ns + b - a, b
+        elif b > end:
+            busy_ns, end = busy_ns + b - end, b
+    if not key_averages:
+        return wall, busy_ns / 1e9
+    summed_ns = sum(b - a for a, b in spans)
+    ka_us = sum(getattr(e, "self_device_time_total", None) or
+                getattr(e, "self_cuda_time_total", 0.0)
+                for e in prof.key_averages() if e.device_type == cuda)
+    return wall, busy_ns / 1e9, summed_ns / 1e9, ka_us / 1e6
 
 
 def ab_energy(model, st, env):
@@ -1301,7 +1360,7 @@ def phase8(dev) -> tuple:
     check(abs(e_fz - e_dy) <= AB_E_FROZEN_TOL,
           f"energy after {nf} moves: frozen {e_fz:.12f}, dynamic {e_dy:.12f}, |dE| "
           f"{abs(e_fz - e_dy):.2e} <= {AB_E_FROZEN_TOL:.0e}")
-    # converge_frozen (forward) to 1e-8 or 48 moves: the frozen engine's main path
+    # converge_frozen (forward) to 1e-8 or AB_CONVERGE_ITER moves: the frozen engine's main path
     torch.cuda.synchronize()
     reset_launch_counts()
     t0 = time.perf_counter()
@@ -1330,11 +1389,22 @@ def phase8(dev) -> tuple:
             specs.append(env_s.get_spectrum())
         e_s = ab_energy(J1J2_ABELIAN(j1=J1, j2=J2, device=where), st_s, env_s)
         res.append((specs, e_s, env_s, a_s))
-    (sp_c, e_c, env_c, a_c), (sp_d, e_d, _, _) = res
+    (sp_c, e_c, env_c, a_c), (sp_d, e_d, env_d3, a_d3) = res
     d_spec = max(float(np.abs(x / x[0] - y / y[0]).max()) for x, y in zip(sp_c, sp_d))
     check(d_spec <= AB_SMALL_TOL and abs(e_c - e_d) <= AB_SMALL_TOL,
           f"D=3 chi={AB_SMALL_CHI} card vs CPU: 6 dynamic moves' spectra max diff {d_spec:.2e}, "
           f"energy |dE| {abs(e_c - e_d):.2e} <= {AB_SMALL_TOL:.0e}")
+    # the busy share's readings on one such move: the union of the device
+    # intervals (busy_share), their plain sum, and key_averages' self times
+    ab_ctmrg.ctm_move_sl(a_d3, env_d3, AB_PK)
+    wall3, union3, sum3, ka3 = busy_share(lambda: ab_ctmrg.ctm_move_sl(a_d3, env_d3, AB_PK),
+                                          key_averages=True)
+    print(f"  one D=3 chi={AB_SMALL_CHI} dynamic move on the card: {1000 * wall3:.3f} ms wall; "
+          f"device busy {1000 * union3:.3f} ms (union of intervals, share "
+          f"{union3 / wall3:.3f}), {1000 * sum3:.3f} ms (summed durations, "
+          f"{sum3 / wall3:.3f}), {1000 * ka3:.3f} ms (key_averages self device time, "
+          f"{ka3 / wall3:.3f})")
+    del env_d3, a_d3
     keep_s = ab_frozen.freeze_from_env(env_c)
     out = []
     for where in ("cpu", dev):
@@ -1357,6 +1427,350 @@ def phase8(dev) -> tuple:
     return rec, counts_entry, counts_frozen
 
 
+def ab_plan_seconds() -> float:
+    from tpeps_torch.sym.tensor import plan_cache_stats
+
+    return plan_cache_stats()["build_seconds"]
+
+
+def ab_train_cfg(argv):
+    """A config of the abelian training entry point's flags."""
+    from tpeps_torch.config import configure
+    from tpeps_torch.examples.j1j2.abelian.optim_j1j2_c4v_u1 import make_parser
+
+    return configure(make_parser().parse_args(argv))
+
+
+def adjoint_run(commit, lam_c, lam_t, ratio, max_iter, a, uC, uT):
+    """The Neumann adjoint's loop with a linear stand-in move (u_C, u_T scale
+    by lambda each iteration, abar_i = a (u_C[0] + u_T[0])) through
+    ``commit``: the final state."""
+    from tpeps_torch.kernels import frozen as kfrozen
+
+    uT = ratio * uT
+    st = kfrozen.adjoint_state(a, uC, uT, max_iter, 1e-8)
+    while not bool(st.ctl[1]):
+        da_i = a * (uC[0] + uT[0])
+        uC, uT = lam_c * uC, lam_t * uT
+        commit(st, da_i, uC, uT)
+    return st
+
+
+def adjoint_diagnosis(a, C0, T0, keep, cfg, dev) -> None:
+    """Why the implicit adjoint diverges or converges at a closure's frozen
+    fixed point (``run_frozen`` from the closed ``(C0, T0)`` as the loss
+    runs it): per sector the kept count, the smallest relative gap among the
+    kept values and the gap at the cut; how far one more move moves |C|, |T|
+    and the kept projector; and the norm of one ``move_frozen`` VJP of a unit
+    random cotangent at ``ad_decomp_reg`` 1e-12, 1e-8 and 1e-4."""
+    from tpeps_torch.ctm.c4v_abelian import ctmrg as ab_ctmrg
+    from tpeps_torch.ctm.c4v_abelian import frozen as ab_frozen
+    from tpeps_torch.sym.frozen import eigh_blockwise_fixed
+    from tpeps_torch.sym.tensor import AbelianTensor, _sector_matrices
+
+    keep = dict(keep)
+    C, T, n, _ = ab_frozen.run_frozen(a, C0, T0, keep, max_iter=cfg.ctm.ctm_max_iter,
+                                      conv_tol=cfg.ctm.ctm_conv_tol)
+    _, mats = _sector_matrices(ab_ctmrg.c2x2_sl(a, C, T), (0, 1, 2), (3, 4, 5))
+    rows = []
+    for q, k in sorted(keep.items()):
+        Mq = mats[q][6]
+        if q == 0:
+            sv = torch.linalg.eigvalsh(0.5 * (Mq + Mq.mT)).abs().sort(descending=True).values
+        else:
+            sv = torch.linalg.svdvals(Mq)
+        gaps = (sv[:k] - sv[1:k + 1]) / sv[0]
+        inner = float(gaps[:k - 1].min()) if k > 1 else float("nan")
+        rows.append(f"{q}: kept {k}, gap among kept {inner:.2e}, at the cut "
+                    f"{float(gaps[k - 1]):.2e}")
+    print(f"  after {n} frozen moves, the kept sector spectra (relative gaps): " + "; ".join(rows))
+
+    def projector(Cx, Tx):
+        P, _ = eigh_blockwise_fixed(ab_ctmrg.c2x2_sl(a, Cx, Tx), (0, 1, 2), (3, 4, 5), keep)
+        return P.tensordot(P.conj(), ((3,), (3,)))
+
+    C2, T2 = ab_frozen.move_frozen(a, C, T, keep)
+    dQ = float((projector(C2, T2).data - projector(C, T).data).abs().max())
+    print(f"  one more frozen move changes |C| by "
+          f"{float((C2.data.abs() - C.data.abs()).abs().max()):.3e}, |T| by "
+          f"{float((T2.data.abs() - T.data.abs()).abs().max()):.3e}, the kept projector by "
+          f"{dQ:.3e}")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    yC = torch.randn(C.data.numel(), generator=gen, device=dev, dtype=C.data.dtype)
+    yT = torch.randn(T.data.numel(), generator=gen, device=dev, dtype=T.data.dtype)
+    norm = (yC.square().sum() + yT.square().sum()).sqrt()
+    out = []
+    for reg in (1e-12, 1e-8, 1e-4):
+        leaves = [x.data.detach().clone().requires_grad_() for x in (a, C, T)]
+        with torch.enable_grad():
+            oC, oT = ab_frozen.move_frozen(*(AbelianTensor._flat(x, x.struct, v)
+                                             for x, v in zip((a, C, T), leaves)), keep, reg)
+            g = torch.autograd.grad((oC.data, oT.data), leaves, (yC / norm, yT / norm))
+        out.append(f"{reg:g}: " + " / ".join(f"{float(x.norm()):.3e}" for x in g))
+    print("  one move's VJP of a unit cotangent, norms a / C / T at ad_decomp_reg "
+          + "; ".join(out))
+
+
+def phase9(dev) -> tuple:
+    print(f"== phase 9: the abelian training slice, U(1) C4v J1-J2 D=8 chi={AB_CHI} float64",
+          flush=True)
+    from tpeps_torch.config import CtmArgs
+    from tpeps_torch.ctm.c4v_abelian import ctmrg as ab_ctmrg
+    from tpeps_torch.ctm.c4v_abelian import frozen as ab_frozen
+    from tpeps_torch.ctm.c4v_abelian.env import ENV_C4V_ABELIAN, as_generic
+    from tpeps_torch.ctm.c4v_abelian.env import init_env as ab_init_env
+    from tpeps_torch.examples.j1j2.abelian.optim_j1j2_c4v_u1 import main as opt_main
+    from tpeps_torch.ipeps.ipeps_abelian import IPEPS_ABELIAN, make_c4v_symm_A1_abelian
+    from tpeps_torch.kernels import blocksparse, launch_counts, reset_launch_counts
+    from tpeps_torch.kernels import frozen as kfrozen
+    from tpeps_torch.models.abelian.j1j2 import J1J2_ABELIAN
+    from tpeps_torch.optim.abelian import c4v_abelian_losses
+    from tpeps_torch.sym.io import write_ipeps_abelian
+    from tpeps_torch.sym.tensor import AbelianTensor
+
+    rec = {}
+    st = ab_state(AB_AUX, dev)
+    a = st.site((0, 0))
+    model = J1J2_ABELIAN(j1=J1, j2=J2, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(9)
+    rnd = lambda n: torch.rand(n, generator=gen, device=dev, dtype=torch.float64) - 0.5  # noqa
+
+    # (a) the backward kernels against their twins at a frozen move's shapes
+    env = ab_init_env(st, AB_CHI)
+    for _ in range(AB_WARM_MOVES):
+        env = ab_ctmrg.ctm_move_sl(a, env, AB_PK)
+    keep = ab_frozen.freeze_from_env(env)
+    C, T = ab_frozen.close_structure(a, env.C, env.T, dict(keep))
+    (nC, nT), calls = record_dots(lambda: ab_frozen._move_raw(a, C, T, dict(keep)))
+    check(len(calls) == 10, f"one frozen move made {len(calls)} tensordots (10)")
+    tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, flops=0, bytes=0)
+    err_max, big_perm = 0.0, None
+    for i, (x, y, axes, out_like) in enumerate(calls):
+        plan, abuf, bbuf = x.dot_operands(y, axes, out_like)
+        G = rnd(plan.out.numel)
+        tab_a, tab_b = plan.gemm.grad_tables()
+        for side, tab, lhs, rhs, n_out in (("dA", tab_a, G, bbuf, abuf.numel()),
+                                           ("dB", tab_b, abuf, G, bbuf.numel())):
+            def kern(tab=tab, lhs=lhs, rhs=rhs, n_out=n_out):
+                return blocksparse.block_gemm(lhs, rhs, torch.zeros(n_out, dtype=lhs.dtype,
+                                                                    device=dev), tab)
+
+            def twin(tab=tab, lhs=lhs, rhs=rhs, n_out=n_out):
+                return blocksparse.block_gemm_twin(lhs, rhs, torch.zeros(
+                    n_out, dtype=lhs.dtype, device=dev), tab)
+
+            out_k, out_t = kern().clone(), twin()
+            err = rel_err(out_k, out_t)
+            err_max = max(err_max, float((out_k - out_t).abs().max()))
+            ms_k, ms_t = min(cuda_ms(kern), cuda_ms(kern)), cuda_ms(twin, reps=2)
+            flops, elems = tab.work()
+            b_ms, b_by = bound(8 * elems, flops, FP64_TC)
+            for key, v in (("ms", ms_k), ("plain_ms", ms_t), ("bound_ms", b_ms),
+                           ("flops", flops), ("bytes", 8 * elems)):
+                tot[key] += v
+            check(err <= TOL[torch.float64],
+                  f"block_gemm {side} table of tensordot {i + 1}: {tab.npairs} pairs, {tab.nout} "
+                  f"blocks, {flops / 1e9:.3f} GFLOP, {8 * elems / 1e6:.1f} MB; kernel "
+                  f"{ms_k:.3f} ms, twin {ms_t:.3f} ms, bound {b_ms:.4f} ms ({b_by}); rel err "
+                  f"{err:.1e} <= 1e-12")
+            del out_k, out_t
+        for src, perm in ((x, plan.perm_a), (y, plan.perm_b)):
+            if perm is not None and (big_perm is None or perm.total > big_perm[1].total):
+                big_perm = (src, perm)
+        del abuf, bbuf, G
+    bound_by = "bytes" if tot["bytes"] / HBM_BPS >= tot["flops"] / FP64_TC else "operations"
+    rec["block_gemm_grad"] = {"max_abs_err": err_max, "ms": tot["ms"],
+                              "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
+                              "bound_by": bound_by, "library_ms": None,
+                              "gflop_per_move_vjp": tot["flops"] / 1e9,
+                              "mb_per_move_vjp": tot["bytes"] / 1e6}
+    print(f"  block_gemm on the backward tables of a frozen move's 10 tensordots (20 launches): "
+          f"kernel {tot['ms']:.3f} ms, twin {tot['plain_ms']:.3f} ms, bound "
+          f"{tot['bound_ms']:.4f} ms, {tot['flops'] / 1e9:.2f} GFLOP, {tot['bytes'] / 1e9:.2f} GB")
+    src, table = big_perm
+    inv = table.inverse()
+    g = rnd(table.total)
+    dk, dt = torch.zeros_like(src.data), torch.zeros_like(src.data)
+    blocksparse.block_permute(g, dk, inv)
+    blocksparse.block_permute_twin(g, dt, inv)
+    check(torch.equal(dk, dt), f"block_permute on the inverse table of the largest operand "
+                               f"({inv.nblk} blocks, {inv.total} entries): bit-exact")
+    time_case(rec, "block_permute_grad", lambda: blocksparse.block_permute(g, dk, inv),
+              lambda: blocksparse.block_permute_twin(g, dt, inv), None, 2 * 8 * inv.total, 0,
+              FP64_CC)
+    del g, dk, dt, calls
+    # the epilogue's backward on the raw C', T' of the same move
+    pC = ab_frozen.partner_index(C.struct, ab_frozen.C_PARTNER, dev)
+    pT = ab_frozen.partner_index(T.struct, ab_frozen.T_PARTNER, dev)
+    gC, gT = rnd(nC.data.numel()), rnd(nT.data.numel())
+    xk = kfrozen.frozen_epilogue_vjp(nC.data, nT.data, pC, pT, gC, gT)
+    xt = kfrozen.frozen_epilogue_vjp_twin(nC.data, nT.data, pC, pT, gC, gT)
+    e = max(rel_err(u, v) for u, v in zip(xk, xt))
+    check(e <= TOL[torch.float64], f"frozen_epilogue_vjp on C' {nC.data.numel()}, T' "
+                                   f"{nT.data.numel()} entries: rel err {e:.1e} <= 1e-12")
+    nel = nC.data.numel() + nT.data.numel()
+    time_case(rec, "frozen_epilogue_vjp",
+              lambda: kfrozen.frozen_epilogue_vjp(nC.data, nT.data, pC, pT, gC, gT),
+              lambda: kfrozen.frozen_epilogue_vjp_twin(nC.data, nT.data, pC, pT, gC, gT),
+              None, 8 * 4 * nel, 8 * nel, FP64_CC)
+    # one adjoint step, then the crafted loops
+    da_i, uC, uT = rnd(a.data.numel()), rnd(C.data.numel()), rnd(T.data.numel())
+    sk = kfrozen.adjoint_state(a.data, gC, gT, 100, 1e-8)
+    stw = kfrozen.adjoint_state(a.data, gC, gT, 100, 1e-8)
+    kfrozen.adjoint_commit(sk, da_i, uC, uT)
+    kfrozen.adjoint_commit_twin(stw, da_i, uC, uT)
+    e_step = max(rel_err(sk.da, stw.da), rel_err(sk.scal, stw.scal))
+    check(e_step <= TOL[torch.float64] and torch.equal(sk.ctl, stw.ctl),
+          f"adjoint_commit one step: da, delta rel err {e_step:.1e} <= 1e-12, ctl "
+          f"{sk.ctl.tolist()} bit-exact")
+    for name, (lc, lt, ratio, mi) in AB_ADJ_CASES.items():
+        u0C, u0T = rnd(C.data.numel()), rnd(T.data.numel())
+        sk = adjoint_run(kfrozen.adjoint_commit, lc, lt, ratio, mi, a.data, u0C, u0T)
+        stw = adjoint_run(kfrozen.adjoint_commit_twin, lc, lt, ratio, mi, a.data, u0C, u0T)
+        check(torch.equal(sk.ctl, stw.ctl) and rel_err(sk.da, stw.da) <= TOL[torch.float64],
+              f"adjoint_commit loop '{name}': (i, done, -, max_iter, grew, diverged) "
+              f"{sk.ctl.tolist()} bit-exact, da rel err {rel_err(sk.da, stw.da):.1e}")
+    sk2 = kfrozen.adjoint_state(a.data, gC, gT, 10**9, 0.0)
+    st2 = kfrozen.adjoint_state(a.data, gC, gT, 10**9, 0.0)
+    na, nct = a.data.numel(), C.data.numel() + T.data.numel()
+    time_case(rec, "adjoint_commit", lambda: (kfrozen.adjoint_commit(sk2, da_i, uC, uT), sk2.da)[1],
+              lambda: (kfrozen.adjoint_commit_twin(st2, da_i, uC, uT), st2.da)[1], None,
+              8 * (3 * na + nct), na + 2 * nct, FP64_CC)
+    check(torch.equal(sk2.ctl, st2.ctl), f"adjoint_commit after the timing calls: ctl "
+                                         f"{sk2.ctl.tolist()} bit-exact")
+    del nC, nT, gC, gT, C, T, env
+
+    # (b) one closure of optimize_c4v_abelian: context, gradient, energy
+    cfg = ab_train_cfg(["--chi", str(AB_CHI), "--j1", str(J1), "--j2", str(J2),
+                        "--CTMARGS_ctm_max_iter", str(AB_CLOSURE_MOVES),
+                        "--GLOBALARGS_device", str(dev)])
+    grad_stats = []
+    p0, ctx_fn, loss_fn, sym_site = c4v_abelian_losses(st, model.energy_per_site, cfg,
+                                                      grad_stats=grad_stats)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    plan0 = ab_plan_seconds()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        ctx = ctx_fn(p0)
+    torch.cuda.synchronize()
+    t_ctx = time.perf_counter() - t0
+    plan_ctx = ab_plan_seconds() - plan0
+    keep_b, C0, T0 = ctx
+    p = p0.clone().requires_grad_()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    loss = loss_fn(p, ctx)
+    torch.cuda.synchronize()
+    t_fwd = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    (g,) = torch.autograd.grad(loss, p)
+    torch.cuda.synchronize()
+    t_bwd = time.perf_counter() - t0
+    counts_grad = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    gs = grad_stats[-1]
+    e0, gnorm = float(loss.detach()), float(g.norm())
+    check(math.isfinite(e0) and bool(torch.isfinite(g).all()), "one closure: loss and gradient "
+                                                               "finite")
+    n_adj = gs["adjoint_iters"]
+    print(f"  context: {AB_CLOSURE_MOVES} dynamic moves + freeze + close_structure {t_ctx:.2f} s "
+          f"(host planning {plan_ctx:.2f} s), profile {dict(keep_b)}; frozen forward "
+          f"{gs['forward_seconds']:.2f} s "
+          f"({gs['forward_moves']} moves + 1 alignment move, dist2 {gs['forward_dist2']:.3e}, "
+          f"R != 1 for (C, T): {gs['sign_aligned']}); energy forward "
+          f"{t_fwd - gs['forward_seconds']:.2f} s; adjoint {gs['adjoint_seconds']:.2f} s: "
+          f"{n_adj} iterations, {1000 * gs['adjoint_seconds'] / max(n_adj, 1):.1f} ms each, "
+          f"{'diverged' if gs['adjoint_diverged'] else 'converged'} (|u|^2 "
+          f"{gs['adjoint_delta']:.3e}); energy backward {t_bwd - gs['adjoint_seconds']:.2f} s; "
+          f"peak memory {peak / 2**30:.2f} GiB")
+    print("  launches per gradient: " + ", ".join(f"{k} {counts_grad[k]}" for k in AB_TRAIN))
+    check(all(counts_grad[k] > 0 for k in AB_TRAIN), "one gradient launched every kernel of "
+                                                     "the abelian training path")
+    h = 1e-5
+    d = g / g.norm()
+    with torch.no_grad():
+        fd = (float(loss_fn(p0 + h * d, ctx)) - float(loss_fn(p0 - h * d, ctx))) / (2 * h)
+    check(math.isfinite(fd) and fd > 0,
+          f"a step along -g descends in the closure's context: the central difference along "
+          f"g/|g| (h={h:g}) {fd:.9e} is finite and > 0 (loss {e0:.12f}; |g| {gnorm:.9e}, "
+          f"relative difference {abs(fd - gnorm) / gnorm:.2e})")
+    with torch.no_grad():
+        A = sym_site(p0)
+        adjoint_diagnosis(A * (1.0 / A.norm()), C0, T0, keep_b, cfg, dev)
+    # the backward's device busy share, on a second closure (the frozen
+    # forward's is phase 8's per-move figure)
+    loss = loss_fn(p, ctx)
+    torch.cuda.synchronize()
+    wall_bw, dev_bw = busy_share(lambda: torch.autograd.grad(loss, p))
+    print(f"  backward (the graph of one move, the adjoint, the energy's backward) under the "
+          f"profiler: {wall_bw:.2f} s, busy share {dev_bw / wall_bw:.3f} ({dev_bw:.2f} s device)")
+    del ctx, C0, T0, p, g, loss
+
+    # (c) two L-BFGS epochs of the entry point on the written state
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "u1_c4v_D8.json")
+        write_ipeps_abelian(st, path)
+        stats_c = []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        e_fin, hist = opt_main(["--instate", path, "--chi", str(AB_CHI), "--j1", str(J1), "--j2",
+                                str(J2), "--opt_max_iter", "2", "--OPTARGS_line_search",
+                                "backtracking", "--CTMARGS_ctm_max_iter", str(AB_GRAD_MOVES),
+                                "--out_prefix", str(Path(tmp) / "opt"), "--GLOBALARGS_device",
+                                str(dev)], grad_stats=stats_c)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts_train = launch_counts()
+    peak_c = torch.cuda.max_memory_allocated()
+    losses = hist["loss"]
+    print(f"  entry point, 2 epochs: {wall:.2f} s (gradient closures "
+          + ", ".join(f"{x:.2f}" for x in hist["t_grad"]) + " s, line searches "
+          + ", ".join(f"{x:.2f}" for x in hist["t_ls"]) + f" s), {len(stats_c)} gradients ("
+          + "; ".join(f"{s['forward_moves']} + 1 forward moves in {s['forward_seconds']:.2f} "
+                      f"s, {s['adjoint_iters']} adjoint iterations in "
+                      f"{s['adjoint_seconds']:.2f} s{' DIVERGED' if s['adjoint_diverged'] else ''}"
+                      for s in stats_c)
+          + f"), losses {losses}, FINAL {e_fin:.12f}, peak {peak_c / 2**30:.2f} GiB")
+    print("  launches in the two epochs: " + ", ".join(f"{k} {counts_train[k]}" for k in AB_TRAIN))
+    check(len(losses) == 2 and all(math.isfinite(x) for x in losses) and losses[1] <= losses[0]
+          and math.isfinite(e_fin), "two epochs: losses finite, the second not above the first")
+    check(all(counts_train[k] > 0 for k in AB_TRAIN), "the two epochs launched every kernel of "
+                                                      "the abelian training path")
+
+    # (d) D=3 chi=9: the gradient on the card against the CPU twins'
+    st_s = ab_state(AB_SMALL_AUX, "cpu", seed=1)
+    env_s, _ = ab_ctmrg.run(st_s, ab_init_env(st_s, AB_GRAD_SMALL_CHI),
+                            CtmArgs(ctm_max_iter=60, ctm_conv_tol=1e-9))
+    keep_s = ab_frozen.freeze_from_env(env_s)
+    Cs, Ts = ab_frozen.close_structure(st_s.site((0, 0)), env_s.C, env_s.T, dict(keep_s))
+    out = []
+    for where in ("cpu", dev):
+        a_s = st_s.site((0, 0)).to(where)
+        x = a_s.data.clone().requires_grad_()
+        A = make_c4v_symm_A1_abelian(AbelianTensor._flat(a_s, a_s.struct, x))
+        A = A * (1.0 / A.norm())
+        stats_s = {}
+        Cf, Tf = ab_frozen.converge_closed(A, Cs.to(where), Ts.to(where), keep_s,
+                                           max_iter=AB_GRAD_SMALL_ITER, conv_tol=1e-10,
+                                           stats=stats_s)
+        bp, gg = as_generic(IPEPS_ABELIAN("U1", {(0, 0): A}),
+                            ENV_C4V_ABELIAN(AB_GRAD_SMALL_CHI, Cf, Tf))
+        e_s = J1J2_ABELIAN(j1=J1, j2=J2, device=where).energy_per_site(bp, gg)
+        (g_s,) = torch.autograd.grad(e_s, x)
+        out.append((float(e_s.detach()), g_s.cpu(), stats_s))
+    (e_c, g_c, s_c), (e_d, g_d, s_d) = out
+    e_g = rel_err(g_d, g_c)
+    check(e_g <= AB_GRAD_SMALL_TOL and abs(e_c - e_d) <= AB_SMALL_TOL,
+          f"D=3 chi={AB_GRAD_SMALL_CHI} gradient card vs CPU: rel err {e_g:.2e} <= "
+          f"{AB_GRAD_SMALL_TOL:.0e}, loss |dE| {abs(e_c - e_d):.2e}; adjoint iterations "
+          f"{s_d['adjoint_iters']} (CPU {s_c['adjoint_iters']}), R != 1 {s_d['sign_aligned']} "
+          f"(CPU {s_c['sign_aligned']})")
+    return rec, counts_grad, counts_train
+
+
 def main() -> None:
     smi = phase0()
     dev = torch.device("cuda", 0)
@@ -1370,13 +1784,17 @@ def main() -> None:
     counts_large = phase7(dev)
     rec_ab, counts_ab, counts_fz = phase8(dev)
     rec.update(rec_ab)
+    rec_tr, counts_grad, counts_abtr = phase9(dev)
+    rec.update(rec_tr)
     # launches: on the training path for its kernels, on the large-D slice
     # for K5/K7, on the abelian entry point for K8 and converge_frozen for
-    # K9, else on the forward path (K1, K2, K4 and eigh_small)
+    # K9, on the abelian training entry point for K8's and K9's backward,
+    # else on the forward path (K1, K2, K4 and eigh_small)
     main_run = lambda name: (counts_train if name in TRAIN
                              else counts_large if name in LARGE_D
                              else counts_fz if name == "frozen_commit"
-                             else counts_ab if name in ABELIAN else counts_fwd)
+                             else counts_ab if name in ABELIAN
+                             else counts_abtr if name in AB_TRAIN else counts_fwd)
     kernels = [
         {"name": name, "route": "cuda", "source": SOURCES[name][0],
          "replaces": SOURCES[name][1],
@@ -1385,7 +1803,9 @@ def main() -> None:
          "launches_training_slice": counts_train[name],
          "launches_large_d_slice": counts_large[name],
          "launches_abelian_entry_point": counts_ab[name],
-         "launches_abelian_frozen": counts_fz[name], **rec[name]}
+         "launches_abelian_frozen": counts_fz[name],
+         "launches_abelian_gradient": counts_grad[name],
+         "launches_abelian_training": counts_abtr[name], **rec[name]}
         for name in SOURCES
     ]
     print(smi)

@@ -227,13 +227,18 @@ def test_frozen_commit_twin_matches_jax_loop_body(frozen_runs):
 
 
 def test_converge_frozen_forward_only(frozen_runs):
+    """The forward from a detached site; a site that requires grad now takes
+    the implicit adjoint (tests/test_torch_abelian_grad.py holds its values):
+    the result carries a graph and the backward gives a finite gradient."""
     ta, C, T, keep, _ = frozen_runs
     env = c4v_env.ENV_C4V_ABELIAN(9, C, T)
     out = frozen.converge_frozen(ta, env, max_iter=3)
-    assert out.C.struct is C.struct
-    a_grad = type(ta)._flat(ta, ta.struct, ta.data.clone().requires_grad_())
-    with pytest.raises(NotImplementedError, match="training"):
-        frozen.converge_frozen(a_grad, env)
+    assert out.C.struct is C.struct and not out.C.data.requires_grad
+    x = ta.data.clone().requires_grad_()
+    out = frozen.converge_frozen(type(ta)._flat(ta, ta.struct, x), env, max_iter=3)
+    assert out.C.struct is C.struct and out.C.data.requires_grad
+    (g,) = torch.autograd.grad((out.C.data ** 2).sum() + (out.T.data ** 2).sum(), x)
+    assert g.shape == x.shape and bool(torch.isfinite(g).all())
 
 
 def _jax_example():

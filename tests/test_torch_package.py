@@ -25,7 +25,8 @@ from tpeps_torch.kernels.ozaki import ozaki_gemm, ozaki_split
 from tpeps_torch.kernels.eigh_small import eigh_small
 from tpeps_torch.kernels.polar import polar_unitary, polar_vjp
 from tpeps_torch.kernels.blocksparse import GemmTable, PermuteTable, block_gemm, block_permute
-from tpeps_torch.kernels.frozen import FrozenState, frozen_commit
+from tpeps_torch.kernels.frozen import (AdjointState, FrozenState, adjoint_commit, frozen_commit,
+                                        frozen_epilogue_vjp)
 from tpeps_torch.models.j1j2 import J1J2_C4V_BIPARTITE
 
 REPO = Path(__file__).resolve().parent.parent
@@ -66,6 +67,9 @@ def _wrapper_calls(make):
     gtable = GemmTable([0], [2], [3], [0, 1], [0], [0], [4], [1])
     fstate = FrozenState(make((6,)), make((8,)), make((1,)), make((1,)), ctl)
     pidx = torch.zeros(6, dtype=torch.int64, device=W.device)
+    pidx8 = torch.zeros(8, dtype=torch.int64, device=W.device)
+    astate = AdjointState(make((4,)), make((3,)), torch.zeros(6, dtype=torch.int32,
+                                                               device=W.device))
     return {
         "layer_contract": lambda: layer_contract(W, X, Y, n_k=1),
         "corner_apply": lambda: corner_apply(make((12, 12)), P),
@@ -86,6 +90,12 @@ def _wrapper_calls(make):
         "frozen_commit": lambda: frozen_commit(fstate, make((6,)), make((8,)), pidx,
                                                torch.zeros(8, dtype=torch.int64,
                                                            device=W.device)),
+        "frozen_epilogue_vjp": lambda: frozen_epilogue_vjp(make((6,)), make((8,)), pidx, pidx8,
+                                                           make((6,)), make((8,))),
+        "adjoint_commit": lambda: adjoint_commit(astate, make((4,)), make((6,)), make((8,))),
+        "block_permute_grad": lambda: block_permute(make((6,)), make((6,)), ptable.inverse()),
+        "block_gemm_grad": lambda: block_gemm(make((6,)), make((12,)), make((8,)),
+                                              gtable.grad_tables()[0]),
     }
 
 

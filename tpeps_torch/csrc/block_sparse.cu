@@ -26,6 +26,12 @@
 //   128 consecutive elements of a small block, one per thread, each a dot
 //   product read straight from memory (a 1 x 2 block is not padded to a
 //   64 x 64 tile).
+//   A launch may read either operand transposed (trans_a: each A_p stored
+//   k x m; trans_b: each B_p stored n x k): only the slab loads' indexing
+//   changes.  The backward of a tensordot is two such launches on tables the
+//   host derives from the forward one (tpeps_torch/kernels/blocksparse.py):
+//   dA = sum_p s_p G_o B_p^T grouped by A block, dB = sum_p s_p A_p^T G_o
+//   grouped by B block, each output block again written once.
 //
 // What bounds it on an H100: at D=8, chi=160 one CTMRG move's ten
 // tensordots do ~4.7 GFLOP over ~1.6 GB of operands and results, so memory
@@ -119,24 +125,46 @@ struct GemmTables {
   const int32_t* pr_k;    // contracted extent
   const int32_t* pr_s;    // sign, +1 or -1
   const int32_t* tiles;   // (o, kind, r0, c0) per tile
+  int ta;                 // A_p stored k x m (transposed)
+  int tb;                 // B_p stored n x k (transposed)
 };
 
 // Stage the slab k0..k0+TBK of one pair's A rows row0.. and B columns col0..
+// A transposed operand is walked along its stored rows, so that neighbouring
+// threads read neighbouring addresses in both layouts.
 template <typename T>
 __device__ __forceinline__ void stage_slab(T* As, T* Bs, const T* __restrict__ A,
                                            const T* __restrict__ B, T sgn, int m, int n, int k,
-                                           int row0, int col0, int k0, int tid) {
+                                           int row0, int col0, int k0, int tid, int ta, int tb) {
+  if (!ta) {
 #pragma unroll 4
-  for (int e = tid; e < TBM * TBK; e += GNT) {
-    const int r = e / TBK, c = e % TBK;
-    const int gr = row0 + r, gc = k0 + c;
-    As[r * AS + c] = (gr < m && gc < k) ? sgn * A[static_cast<int64_t>(gr) * k + gc] : T(0);
+    for (int e = tid; e < TBM * TBK; e += GNT) {
+      const int r = e / TBK, c = e % TBK;
+      const int gr = row0 + r, gc = k0 + c;
+      As[r * AS + c] = (gr < m && gc < k) ? sgn * A[static_cast<int64_t>(gr) * k + gc] : T(0);
+    }
+  } else {
+#pragma unroll 4
+    for (int e = tid; e < TBM * TBK; e += GNT) {
+      const int r = e % TBM, c = e / TBM;
+      const int gr = row0 + r, gc = k0 + c;
+      As[r * AS + c] = (gr < m && gc < k) ? sgn * A[static_cast<int64_t>(gc) * m + gr] : T(0);
+    }
   }
+  if (!tb) {
 #pragma unroll 4
-  for (int e = tid; e < TBK * TBN; e += GNT) {
-    const int r = e / TBN, c = e % TBN;
-    const int gr = k0 + r, gc = col0 + c;
-    Bs[r * BS + c] = (gr < k && gc < n) ? B[static_cast<int64_t>(gr) * n + gc] : T(0);
+    for (int e = tid; e < TBK * TBN; e += GNT) {
+      const int r = e / TBN, c = e % TBN;
+      const int gr = k0 + r, gc = col0 + c;
+      Bs[r * BS + c] = (gr < k && gc < n) ? B[static_cast<int64_t>(gr) * n + gc] : T(0);
+    }
+  } else {
+#pragma unroll 4
+    for (int e = tid; e < TBK * TBN; e += GNT) {
+      const int r = e % TBK, c = e / TBK;
+      const int gr = k0 + r, gc = col0 + c;
+      Bs[r * BS + c] = (gr < k && gc < n) ? B[static_cast<int64_t>(gc) * k + gr] : T(0);
+    }
   }
 }
 
@@ -165,7 +193,7 @@ __device__ void big_tile(const T* __restrict__ Abuf, const T* __restrict__ Bbuf,
       const int k = tb.pr_k[p];
       const double sgn = static_cast<double>(tb.pr_s[p]);
       for (int k0 = 0; k0 < k; k0 += TBK) {
-        stage_slab<double>(As, Bs, A, B, sgn, m, n, k, row0, col0, k0, tid);
+        stage_slab<double>(As, Bs, A, B, sgn, m, n, k, row0, col0, k0, tid, tb.ta, tb.tb);
         __syncthreads();
 #pragma unroll
         for (int kk = 0; kk < TBK; kk += 4) {
@@ -212,7 +240,7 @@ __device__ void big_tile(const T* __restrict__ Abuf, const T* __restrict__ Bbuf,
       const int k = tb.pr_k[p];
       const T sgn = static_cast<T>(tb.pr_s[p]);
       for (int k0 = 0; k0 < k; k0 += TBK) {
-        stage_slab<T>(As, Bs, A, B, sgn, m, n, k, row0, col0, k0, tid);
+        stage_slab<T>(As, Bs, A, B, sgn, m, n, k, row0, col0, k0, tid, tb.ta, tb.tb);
         __syncthreads();
 #pragma unroll
         for (int kk = 0; kk < TBK; ++kk) {
@@ -251,11 +279,14 @@ __device__ void small_tile(const T* __restrict__ Abuf, const T* __restrict__ Bbu
   const int i = static_cast<int>(e / n), j = static_cast<int>(e % n);
   T acc = T(0);
   for (int p = tb.ob_ptr[o]; p < tb.ob_ptr[o + 1]; ++p) {
-    const T* A = Abuf + tb.pr_a[p] + static_cast<int64_t>(i) * tb.pr_k[p];
-    const T* B = Bbuf + tb.pr_b[p] + j;
     const int k = tb.pr_k[p];
+    // element (i, kk) of A_p and (kk, j) of B_p: a stride of 1 or m along kk
+    // in A, of n or 1 in B
+    const int64_t sa = tb.ta ? m : 1, sb = tb.tb ? 1 : n;
+    const T* A = Abuf + tb.pr_a[p] + static_cast<int64_t>(i) * (tb.ta ? 1 : k);
+    const T* B = Bbuf + tb.pr_b[p] + static_cast<int64_t>(j) * (tb.tb ? k : 1);
     const T sgn = static_cast<T>(tb.pr_s[p]);
-    for (int kk = 0; kk < k; ++kk) acc += (sgn * A[kk]) * B[static_cast<int64_t>(kk) * n];
+    for (int kk = 0; kk < k; ++kk) acc += (sgn * A[kk * sa]) * B[kk * sb];
   }
   Cbuf[tb.ob_off[o] + e] = acc;
 }
@@ -307,16 +338,18 @@ int tpeps_block_permute_f32(const float* src, float* dst, const int64_t* ecum,
 int tpeps_block_gemm_f64(const double* A, const double* B, double* C, const int64_t* ob_off,
                          const int32_t* ob_m, const int32_t* ob_n, const int32_t* ob_ptr,
                          const int64_t* pr_a, const int64_t* pr_b, const int32_t* pr_k,
-                         const int32_t* pr_s, const int32_t* tiles, int ntiles, void* stream) {
-  const GemmTables tb{ob_off, ob_m, ob_n, ob_ptr, pr_a, pr_b, pr_k, pr_s, tiles};
+                         const int32_t* pr_s, const int32_t* tiles, int ntiles, int trans_a,
+                         int trans_b, void* stream) {
+  const GemmTables tb{ob_off, ob_m, ob_n, ob_ptr, pr_a, pr_b, pr_k, pr_s, tiles, trans_a, trans_b};
   return gemm_launch<double>(A, B, C, tb, ntiles, static_cast<cudaStream_t>(stream));
 }
 
 int tpeps_block_gemm_f32(const float* A, const float* B, float* C, const int64_t* ob_off,
                          const int32_t* ob_m, const int32_t* ob_n, const int32_t* ob_ptr,
                          const int64_t* pr_a, const int64_t* pr_b, const int32_t* pr_k,
-                         const int32_t* pr_s, const int32_t* tiles, int ntiles, void* stream) {
-  const GemmTables tb{ob_off, ob_m, ob_n, ob_ptr, pr_a, pr_b, pr_k, pr_s, tiles};
+                         const int32_t* pr_s, const int32_t* tiles, int ntiles, int trans_a,
+                         int trans_b, void* stream) {
+  const GemmTables tb{ob_off, ob_m, ob_n, ob_ptr, pr_a, pr_b, pr_k, pr_s, tiles, trans_a, trans_b};
   return gemm_launch<float>(A, B, C, tb, ntiles, static_cast<cudaStream_t>(stream));
 }
 

@@ -1,6 +1,5 @@
-"""Frozen-structure C4v abelian CTMRG, forward (counterpart of
-tpeps/ctm/c4v_abelian/frozen.py; the implicit adjoint of
-``converge_frozen`` comes with the abelian training path).
+"""Frozen-structure C4v abelian CTMRG and its implicit gradient
+(counterpart of tpeps/ctm/c4v_abelian/frozen.py).
 
 With the per-sector chi profile frozen (``keep``), every block structure of
 the move is fixed, so every plan of it is built once and reused: each move
@@ -10,16 +9,33 @@ of C' and T' written straight into the frozen block sets of C and T, and
 one ``frozen_commit`` (K9: symmetrize, normalize, distance, commit, loop
 test).  cuSOLVER does not capture into a CUDA graph here, so the loop stays
 on the host and reads the 4-byte ``done`` once a move.
+
+``converge_frozen`` differentiates implicitly, as the JAX package's
+``_make_converge_frozen``: the backward builds the graph of one
+``move_frozen`` at the fixed point (its epilogue's backward is
+the ``frozen_epilogue_vjp`` kernel) and iterates the Neumann adjoint
+``u <- (d move/d env)^T u + ybar`` with ``torch.autograd.grad`` on that
+graph, one ``adjoint_commit`` (accumulate, |u|^2, JAX's divergence guard and
+loop test on the card) and one 4-byte read of ``done`` per iteration.
+
+The frozen gauge fixing ties (ROADMAP Queue 3), so the forward loop never
+reaches an elementwise fixed point where a tie flips signs between moves:
+``move(x*) = R * x*`` for a +-1 pattern ``R``.  The backward therefore
+linearizes ``R * move``, whose fixed point ``x*`` is (``R`` from one more
+move after the loop, detached); where ``R = 1`` this is JAX's backward.
 """
 
 from __future__ import annotations
 
+import time
 from contextlib import nullcontext
 
 import numpy as np
 import torch
+from torch.autograd.function import once_differentiable
 
-from ...kernels.frozen import frozen_commit, frozen_state
+from ...kernels.frozen import (adjoint_commit, adjoint_state, frozen_commit,
+                               frozen_epilogue_vjp, frozen_state)
 from ...sym.frozen import eigh_blockwise_fixed, reindex_like
 from ...sym.tensor import AbelianTensor, PLANS, Struct, make_struct
 from ..generic_abelian.components import c2x2_lu
@@ -72,18 +88,42 @@ def partner_index(struct: Struct, axes, device) -> torch.Tensor:
                         lambda: torch.from_numpy(host).to(device))
 
 
+class _Epilogue(torch.autograd.Function):
+    """The move's epilogue on the flat raw ``C'``, ``T'``: forward
+    ``frozen_commit`` on a scratch state, backward ``frozen_epilogue_vjp``
+    (the max-abs scales differentiated)."""
+
+    @staticmethod
+    def forward(ctx, rawC, rawT, pC, pT):
+        rawC, rawT = rawC.detach(), rawT.detach()
+        st = frozen_state(torch.zeros_like(rawC), torch.zeros_like(rawT), 1, 0.0)
+        frozen_commit(st, rawC, rawT, pC, pT)
+        ctx.save_for_backward(rawC, rawT, pC, pT)
+        return st.C, st.T
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, gC, gT):
+        rawC, rawT, pC, pT = ctx.saved_tensors
+        gC = torch.zeros_like(rawC) if gC is None else gC.detach().contiguous()
+        gT = torch.zeros_like(rawT) if gT is None else gT.detach().contiguous()
+        xC, xT = frozen_epilogue_vjp(rawC, rawT, pC, pT, gC, gT)
+        return xC, xT, None, None
+
+
 def move_frozen(a, C, T, keep, ad_decomp_reg: float = 1.0e-12):
     """One C4v move at the frozen sector profile ``keep``: the same corner
     and sublattice bookkeeping as ``ctm_move_sl``, truncation by
     ``eigh_blockwise_fixed``, symmetrized, normalized and reindexed onto the
     block sets of ``C`` and ``T`` (by ``frozen_commit`` on a scratch state).
     ``C`` and ``T`` must hold every block the move produces
-    (:func:`close_structure`)."""
+    (:func:`close_structure`).  Differentiable in ``a``, ``C`` and ``T``
+    with the max-abs scales differentiated (the JAX package's
+    ``sg_norm=False``, the implicit adjoint's move)."""
     nC, nT = _move_raw(a, C, T, dict(keep), ad_decomp_reg)
-    st = frozen_state(C.data, T.data, 1, 0.0)
-    frozen_commit(st, nC.data, nT.data, partner_index(C.struct, C_PARTNER, C.device),
-                  partner_index(T.struct, T_PARTNER, T.device))
-    return AbelianTensor._flat(C, C.struct, st.C), AbelianTensor._flat(T, T.struct, st.T)
+    yC, yT = _Epilogue.apply(nC.data, nT.data, partner_index(C.struct, C_PARTNER, C.device),
+                             partner_index(T.struct, T_PARTNER, T.device))
+    return AbelianTensor._flat(C, C.struct, yC), AbelianTensor._flat(T, T.struct, yT)
 
 
 def _grown(t: AbelianTensor, extra: AbelianTensor) -> AbelianTensor:
@@ -106,7 +146,11 @@ def close_structure(a, C, T, keep, n_max: int = 6):
     tensor (its first use imports torch's meta kernels, seconds).  Missing
     blocks are filled with zeros."""
     keep = dict(keep)
-    am = a.to("meta")
+    with torch.no_grad():
+        return _close(a.to("meta"), C, T, keep, n_max)
+
+
+def _close(am, C, T, keep, n_max):
     for _ in range(n_max):
         Cm, Tm = C.to("meta"), T.to("meta")
         nC, nT = _move_raw(am, Cm, Tm, keep, out_like=False)
@@ -147,19 +191,112 @@ def freeze_from_env(env: ENV_C4V_ABELIAN):
     return tuple(sorted(env.C.legs[0].charges))
 
 
+ALIGN_REL = 1.0e-12  # entries below this times the tensor's max keep R = 1
+# the implicit adjoint's limits (the JAX package's): iterations and |u| / |ybar|
+ADJOINT_MAX_ITER, ADJOINT_TOL = 100, 1.0e-8
+
+
+def sign_alignment(a, C, T, keep, ad_decomp_reg: float = 1.0e-12):
+    """``(R_C, R_T)``: per element ``sign(move(x)) * sign(x)`` of one more
+    frozen move from ``(C, T)``, 1 where ``|x|`` is below ``ALIGN_REL`` times
+    the tensor's max (detached); ``None`` for a tensor where it is 1
+    throughout."""
+    with torch.no_grad():
+        mC, mT = move_frozen(a, C, T, keep, ad_decomp_reg)
+        out = []
+        for x, y in ((C.data, mC.data), (T.data, mT.data)):
+            r = torch.where(x.abs() < ALIGN_REL * x.abs().max(), torch.ones_like(x),
+                            torch.sign(y) * torch.sign(x))
+            out.append(None if bool((r == 1).all()) else r)
+    return tuple(out)
+
+
+class _ConvergeClosed(torch.autograd.Function):
+    """``(C*, T*)`` of the frozen fixed point from a closed ``(C0, T0)``, with
+    the implicit adjoint as backward (``a``'s flat buffer is the one input
+    that takes a gradient)."""
+
+    @staticmethod
+    def forward(ctx, a_data, a, C0, T0, keep, opts, stats):
+        a = AbelianTensor._flat(a, a.struct, a_data.detach())
+        t0 = time.perf_counter()
+        Cf, Tf, n, d2 = run_frozen(a, C0, T0, keep, max_iter=opts["max_iter"],
+                                   conv_tol=opts["conv_tol"], ad_decomp_reg=opts["ad_decomp_reg"])
+        R = sign_alignment(a, Cf, Tf, keep, opts["ad_decomp_reg"])
+        ctx.a, ctx.keep, ctx.opts, ctx.stats, ctx.R = a, keep, opts, stats, R
+        ctx.Cf, ctx.Tf = Cf, Tf
+        if stats is not None:
+            stats.update(forward_moves=n, forward_dist2=d2,
+                         sign_aligned=[r is not None for r in R],
+                         forward_seconds=time.perf_counter() - t0)
+        return Cf.data, Tf.data
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, gC, gT):
+        a, Cf, Tf, opts, stats = ctx.a, ctx.Cf, ctx.Tf, ctx.opts, ctx.stats
+        t0 = time.perf_counter()
+        gC = torch.zeros_like(Cf.data) if gC is None else gC.detach().contiguous()
+        gT = torch.zeros_like(Tf.data) if gT is None else gT.detach().contiguous()
+        leaves = [x.data.detach().requires_grad_() for x in (a, Cf, Tf)]
+        with torch.enable_grad():
+            yC, yT = move_frozen(*(AbelianTensor._flat(x, x.struct, v)
+                                   for x, v in zip((a, Cf, Tf), leaves)),
+                                 ctx.keep, opts["ad_decomp_reg"])
+            ys = [y.data if r is None else y.data * r for y, r in zip((yC, yT), ctx.R)]
+        st = adjoint_state(leaves[0].detach(), gC, gT, ADJOINT_MAX_ITER, ADJOINT_TOL)
+        u = (gC, gT)
+        while not bool(st.ctl[1]):
+            g = torch.autograd.grad(ys, leaves, grad_outputs=u, retain_graph=True,
+                                    allow_unused=True)
+            g = [torch.zeros_like(x) if gi is None else gi.contiguous()
+                 for gi, x in zip(g, leaves)]
+            adjoint_commit(st, g[0], g[1], g[2])
+            u = (g[1], g[2])
+        i, diverged = (int(x) for x in st.ctl[[0, 5]].tolist())
+        if diverged:
+            print(f"tpeps_torch: frozen abelian CTMRG adjoint diverging (iter {i}, "
+                  f"|u|^2={float(st.scal[0])}); gradient truncated", flush=True)
+        if stats is not None:
+            stats.update(adjoint_iters=i, adjoint_diverged=bool(diverged),
+                         adjoint_delta=float(st.scal[0]),
+                         adjoint_seconds=time.perf_counter() - t0)
+        return st.da, None, None, None, None, None, None
+
+
+def converge_closed(a, C, T, keep, max_iter: int = 200, conv_tol: float = 1.0e-10,
+                    ad_decomp_reg: float = 1.0e-12, stats=None):
+    """The converged ``(C*, T*)`` from a closed warm start ``(C, T)`` (the
+    output of :func:`close_structure`), differentiable in ``a`` by the
+    implicit adjoint (the JAX package's ``_make_converge_frozen(...)(a, C,
+    T)``): ``C`` and ``T`` take no gradient.
+
+    :param stats: optional dict; gets the forward's move count, distance and
+        host seconds (the alignment move included), whether ``R != 1`` for C
+        and T, and after a backward the adjoint's iterations, whether it
+        diverged, its last ``|u|^2`` and its host seconds (graph built,
+        iterations, one read of ``done`` each)
+    """
+    opts = dict(max_iter=max_iter, conv_tol=conv_tol, ad_decomp_reg=ad_decomp_reg)
+    keep = dict(keep)
+    if not (torch.is_grad_enabled() and a.data.requires_grad):
+        Cf, Tf, n, d2 = run_frozen(a, C, T, keep, max_iter=max_iter, conv_tol=conv_tol,
+                                   ad_decomp_reg=ad_decomp_reg)
+        if stats is not None:
+            stats.update(forward_moves=n, forward_dist2=d2)
+        return Cf, Tf
+    cd, td = _ConvergeClosed.apply(a.data, a, C, T, keep, opts, stats)
+    return AbelianTensor._flat(C, C.struct, cd), AbelianTensor._flat(T, T.struct, td)
+
+
 def converge_frozen(a, env: ENV_C4V_ABELIAN, keep=None, max_iter: int = 200,
                     conv_tol: float = 1.0e-10, ad_decomp_reg: float = 1.0e-12):
     """Converged environment from a warm (dynamic) env at a frozen profile:
-    ``close_structure`` then ``run_frozen``.  Forward only: the implicit
-    adjoint comes with the abelian training path, so an ``a`` that requires
-    grad raises."""
-    if a.data.requires_grad:
-        raise NotImplementedError(
-            "converge_frozen is forward-only in tpeps_torch: its implicit adjoint (abelian "
-            "training, tpeps/optim/abelian.py) is not ported yet; pass a detached site")
+    ``close_structure`` then :func:`converge_closed`; gradients flow into
+    ``a`` through the implicit adjoint."""
     if keep is None:
         keep = freeze_from_env(env)
     C, T = close_structure(a, env.C, env.T, dict(keep))
-    Cf, Tf, _, _ = run_frozen(a, C, T, keep, max_iter=max_iter, conv_tol=conv_tol,
-                              ad_decomp_reg=ad_decomp_reg)
+    Cf, Tf = converge_closed(a, C, T, keep, max_iter=max_iter, conv_tol=conv_tol,
+                             ad_decomp_reg=ad_decomp_reg)
     return ENV_C4V_ABELIAN(env.chi, Cf, Tf)

@@ -6,10 +6,13 @@ twin (the same math in plain torch ops, used by the CPU tests), CUDA
 tensors launch the kernel or raise.  There is no fallback from a CUDA
 tensor to the twin.  A wrapper computes one function, not its derivative:
 it raises on an input that requires grad.  Gradients go through
-``torch.autograd.Function``s (in :mod:`tpeps_torch.linalg.power`) whose
-``forward`` and ``backward`` call the wrappers on detached tensors; the
-backward ones are kernels of their own (``trsm_right_lower``, ``gram``,
-``polar_vjp``).
+``torch.autograd.Function``s (in :mod:`tpeps_torch.linalg.power`,
+:mod:`tpeps_torch.sym.tensor`, :mod:`tpeps_torch.ctm.c4v_abelian.frozen`)
+whose ``forward`` and ``backward`` call the wrappers on detached tensors;
+the backward ones are kernels of their own (``trsm_right_lower``, ``gram``,
+``polar_vjp``; ``block_gemm`` on transposed tables and ``block_permute`` on
+inverse ones; ``frozen_epilogue_vjp``) or, for the implicit adjoint's loop
+step, ``adjoint_commit``.
 
 ``LAUNCHES`` counts kernel launches per wrapper; a wrapper adds one where
 it launches its kernel and nowhere else.  A launch recorded into a CUDA
@@ -24,7 +27,8 @@ import torch
 KERNELS = ("layer_contract", "corner_apply", "gram_ridge", "gram", "trsm_right_lower_h",
            "trsm_right_lower", "t_epilogue", "polar_unitary", "polar_vjp", "eigh_small",
            "ozaki_split", "ozaki_gemm", "ctm_commit", "block_permute", "block_gemm",
-           "frozen_commit")
+           "frozen_commit", "frozen_epilogue_vjp", "adjoint_commit", "block_permute_grad",
+           "block_gemm_grad")
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 
 

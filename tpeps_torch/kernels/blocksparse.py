@@ -8,13 +8,18 @@ block structure (numpy on the host) and that are uploaded once per device:
   strides, and an optional per-block scale (+-1, the fermionic signs).
   ``block_permute`` copies every entry; its twin is the same copy as one
   gather and one scatter through the table written out element by element.
+  The copy's backward is the copy through :meth:`PermuteTable.inverse`
+  (source and destination swapped, the same scale).
 * :class:`GemmTable` — per output block its offset and ``(m, n)``, and in
   CSR form the list of its pairs ``(A offset, B offset, k, sign)`` in the
   order the JAX code accumulates them, plus the tile list of the launch.
   ``block_gemm`` writes each output block once, ``sum_p sign_p A_p @ B_p``;
   its twin is the JAX package's batched design: the pairs grouped by
   ``(m, k, n)``, one ``torch.bmm`` per group, the signs, and ``index_add_``
-  into the output blocks.
+  into the output blocks.  A table may read either operand transposed
+  (``trans_a``, ``trans_b``); :meth:`GemmTable.grad_tables` derives from a
+  table the two tables of its backward, ``dA = sum_p s_p G_o B_p^T`` grouped
+  by A block and ``dB = sum_p s_p A_p^T G_o`` grouped by B block.
 
 Operands are flat 1-D buffers (a tensor's blocks in sorted key order).
 """
@@ -81,6 +86,18 @@ class PermuteTable(_DeviceCache):
         sizes = shape.prod(axis=1)
         self.ecum = np.concatenate([[0], np.cumsum(sizes)]).astype(np.int64)
         self.total = int(self.ecum[-1])
+        self.grad = False  # the inverse of a forward table (a backward's copy)
+
+    def inverse(self) -> "PermuteTable":
+        """The table of the copy's backward, built once: every entry read from
+        its destination and written to its source, with the same scale (+-1).
+        The backward of a copy that reads each source element at most once."""
+        inv = self.__dict__.get("_inverse")
+        if inv is None:
+            inv = PermuteTable(self.doff, self.soff, self.shape, self.dstr, self.sstr, self.scale)
+            inv.grad = True
+            self.__dict__["_inverse"] = inv
+        return inv
 
     def element_index(self, device) -> tuple:
         """``(src index, dst index, scale or None)`` per element, cached per
@@ -114,7 +131,8 @@ def block_permute_twin(src, dst, table: PermuteTable):
 def block_permute(src, dst, table: PermuteTable):
     """Copy the blocks of the flat ``src`` into the flat ``dst`` through
     ``table``; returns ``dst``.  Destination elements no entry covers are
-    left as they are."""
+    left as they are.  A launch on an inverse table counts as
+    ``block_permute_grad``."""
     if src.dim() != 1 or dst.dim() != 1 or src.dtype != dst.dtype:
         raise ValueError("block_permute: src and dst must be 1-D of one dtype")
     if not route("block_permute", src, dst):
@@ -131,7 +149,7 @@ def block_permute(src, dst, table: PermuteTable):
             t["dstr"].data_ptr(), t["scale"].data_ptr() if "scale" in t else None,
             table.nblk, table.rank, table.total, stream_of(dst))
     lib.check(err, "block_permute")
-    LAUNCHES["block_permute"] += 1
+    LAUNCHES["block_permute_grad" if table.grad else "block_permute"] += 1
     return dst
 
 
@@ -139,11 +157,13 @@ class GemmTable(_DeviceCache):
     """Output blocks ``(offset, m, n)`` with their pairs in CSR form and the
     launch's tiles ``(o, kind, r0, c0)``: kind 1 is a 64 x 64 tile at row
     ``r0``, column ``c0``; kind 0 the 128 elements of block ``o`` from
-    ``r0``."""
+    ``r0``.  ``trans_a``: every A block is stored k x m (read transposed);
+    ``trans_b``: every B block n x k."""
 
     _fields = ("ob_off", "ob_m", "ob_n", "ob_ptr", "pr_a", "pr_b", "pr_k", "pr_s", "tiles")
 
-    def __init__(self, ob_off, ob_m, ob_n, ob_ptr, pr_a, pr_b, pr_k, pr_s):
+    def __init__(self, ob_off, ob_m, ob_n, ob_ptr, pr_a, pr_b, pr_k, pr_s, trans_a=False,
+                 trans_b=False):
         self.ob_off = np.asarray(ob_off, dtype=np.int64)
         self.ob_m = np.asarray(ob_m, dtype=np.int32)
         self.ob_n = np.asarray(ob_n, dtype=np.int32)
@@ -154,6 +174,35 @@ class GemmTable(_DeviceCache):
         self.pr_s = np.asarray(pr_s, dtype=np.int32)
         self.tiles = gemm_tiles(self.ob_m.astype(np.int64), self.ob_n.astype(np.int64))
         self.nout, self.npairs, self.ntiles = len(self.ob_off), len(self.pr_a), len(self.tiles)
+        self.trans_a, self.trans_b = bool(trans_a), bool(trans_b)
+
+    def grad_tables(self) -> tuple:
+        """``(dA table, dB table)`` of this product's backward, built once and
+        kept with the table.  With ``G`` the cotangent of the output:
+        ``dA = block_gemm(G, B, dA table)``, each A block the sum over its
+        pairs of ``s_p G_o B_p^T`` (B read transposed), and ``dB =
+        block_gemm(A, G, dB table)``, each B block the sum of ``s_p A_p^T G_o``
+        (A read transposed).  Pairs keep their order within each block."""
+        tabs = self.__dict__.get("_grad")
+        if tabs is None:
+            if self.trans_a or self.trans_b:
+                raise NotImplementedError("grad_tables of a transposed product")
+            o_of_p = np.repeat(np.arange(self.nout), np.diff(self.ob_ptr))
+            m_p, n_p, k_p = self.ob_m[o_of_p], self.ob_n[o_of_p], self.pr_k
+            g_p = self.ob_off[o_of_p]
+
+            def regroup(key, rows, cols, pa, pb, pk, **trans):
+                order = np.argsort(key, kind="stable")
+                offs, first, cnt = np.unique(key[order], return_index=True, return_counts=True)
+                ptr = np.concatenate([[0], np.cumsum(cnt)])
+                sel = order[first]
+                return GemmTable(offs, rows[sel], cols[sel], ptr, pa[order], pb[order], pk[order],
+                                 self.pr_s[order], **trans)
+
+            tabs = (regroup(self.pr_a, m_p, k_p, g_p, self.pr_b, n_p, trans_b=True),
+                    regroup(self.pr_b, k_p, n_p, self.pr_a, g_p, m_p, trans_a=True))
+            self.__dict__["_grad"] = tabs
+        return tabs
 
     def work(self) -> tuple:
         """``(flops, elements)`` of the function: 2 m n k per pair; each
@@ -214,7 +263,9 @@ def block_gemm_twin(a, b, out, table: GemmTable):
     groups, outs = table.groups(out.device)
     out[outs] = 0
     for ia, ib, ic, sg, m, k, n in groups:
-        prod = torch.bmm(a[ia].view(-1, m, k), b[ib].view(-1, k, n))
+        A = a[ia].view(-1, k, m).transpose(1, 2) if table.trans_a else a[ia].view(-1, m, k)
+        B = b[ib].view(-1, n, k).transpose(1, 2) if table.trans_b else b[ib].view(-1, k, n)
+        prod = torch.bmm(A, B)
         out.index_add_(0, ic, (prod * sg.to(prod.dtype).view(-1, 1, 1)).reshape(-1))
     return out
 
@@ -222,7 +273,9 @@ def block_gemm_twin(a, b, out, table: GemmTable):
 def block_gemm(a, b, out, table: GemmTable):
     """Every output block of ``table`` in the flat ``out``: the signed sum
     of its pairs' products of blocks of the flat ``a`` and ``b``; returns
-    ``out``.  Elements of ``out`` outside the output blocks are untouched."""
+    ``out``.  Elements of ``out`` outside the output blocks are untouched.
+    A launch on a table with a transposed operand counts as
+    ``block_gemm_grad``."""
     if a.dim() != 1 or b.dim() != 1 or out.dim() != 1:
         raise ValueError("block_gemm: operands and output must be flat 1-D buffers")
     if not route("block_gemm", a, b, out):
@@ -237,7 +290,8 @@ def block_gemm(a, b, out, table: GemmTable):
             a.data_ptr(), b.data_ptr(), out.data_ptr(), t["ob_off"].data_ptr(),
             t["ob_m"].data_ptr(), t["ob_n"].data_ptr(), t["ob_ptr"].data_ptr(),
             t["pr_a"].data_ptr(), t["pr_b"].data_ptr(), t["pr_k"].data_ptr(),
-            t["pr_s"].data_ptr(), t["tiles"].data_ptr(), table.ntiles, stream_of(out))
+            t["pr_s"].data_ptr(), t["tiles"].data_ptr(), table.ntiles, int(table.trans_a),
+            int(table.trans_b), stream_of(out))
     lib.check(err, "block_gemm")
-    LAUNCHES["block_gemm"] += 1
+    LAUNCHES["block_gemm_grad" if table.trans_a or table.trans_b else "block_gemm"] += 1
     return out

@@ -57,11 +57,17 @@ _SIGNATURES = {
     "tpeps_block_permute_f64": (_vp,) * 9 + (_i, _i, _i64, _vp),
     "tpeps_block_permute_f32": (_vp,) * 9 + (_i, _i, _i64, _vp),
     "tpeps_block_permute_max_rank": (),
-    "tpeps_block_gemm_f64": (_vp,) * 12 + (_i, _vp),
-    "tpeps_block_gemm_f32": (_vp,) * 12 + (_i, _vp),
+    "tpeps_block_gemm_f64": (_vp,) * 12 + (_i, _i, _i, _vp),
+    "tpeps_block_gemm_f32": (_vp,) * 12 + (_i, _i, _i, _vp),
     "tpeps_frozen_commit_f64": (_vp,) * 11 + (_i64, _i64, _vp),
     "tpeps_frozen_commit_f32": (_vp,) * 11 + (_i64, _i64, _vp),
     "tpeps_frozen_commit_partials": (),
+    "tpeps_frozen_epilogue_vjp_f64": (_vp,) * 9 + (_i64, _i64, _vp),
+    "tpeps_frozen_epilogue_vjp_f32": (_vp,) * 9 + (_i64, _i64, _vp),
+    "tpeps_frozen_epilogue_vjp_partials": (),
+    "tpeps_adjoint_commit_f64": (_vp, _vp, _i64, _vp, _i64, _vp, _i64, _vp, _vp, _vp, _vp),
+    "tpeps_adjoint_commit_f32": (_vp, _vp, _i64, _vp, _i64, _vp, _i64, _vp, _vp, _vp, _vp),
+    "tpeps_adjoint_commit_partials": (),
 }
 
 

@@ -6,17 +6,21 @@ fixing, and the output structure does not depend on the data.
 
 Part of K9: the sector matrices are gathered and the isometry scattered by
 ``block_permute`` (K8); the decompositions are cuSOLVER's (``eigh_desc``,
-``svd_reg``); gauge fixing and the slices are plain torch.
+``svd_reg``); gauge fixing and the slices are plain torch.  Everything is
+differentiable: the gathers and scatters through :func:`permute_flat`, the
+decompositions through their regularized VJPs, and the gauge fixing takes
+its pivots from detached values (the JAX package's ``stop_gradient``).
 """
 
 from __future__ import annotations
 
-import torch
+import numpy as np
 
+from ..kernels.blocksparse import PermuteTable
 from ..linalg.eigh import eigh_desc, fix_eigvec_phase
 from ..linalg.svd import fix_svd_signs, svd_reg
-from .tensor import AbelianTensor, _finish_svd, _isometry, _qscale, _rows_pshift, \
-    _sector_matrices, leg
+from .tensor import PLANS, AbelianTensor, _finish_svd, _isometry, _qscale, _rows_pshift, \
+    _sector_matrices, leg, permute_flat
 
 
 def _check_keep(keep, sector_mats, what):
@@ -92,13 +96,23 @@ def svd_blockwise_fixed(t: AbelianTensor, row_axes, col_axes, keep: dict,
 
 def reindex_like(t: AbelianTensor, ref: AbelianTensor) -> AbelianTensor:
     """``t`` on ``ref``'s exact block set and leg metadata: blocks missing
-    from ``t`` are zero, blocks absent from ``ref`` are dropped."""
+    from ``t`` are zero, blocks absent from ``ref`` are dropped (one
+    ``block_permute`` through a table cached by the two structures)."""
     if t.struct is ref.struct:
-        data = t.data
-    else:
-        blocks = t.blocks
-        data = torch.cat([blocks[q].reshape(-1) if q in blocks
-                          else torch.zeros(int(z), dtype=t.data.dtype, device=t.device)
-                          for q, z in zip(ref.struct.keys, ref.struct.sizes)]) \
-            if ref.struct.keys else torch.zeros(0, dtype=t.data.dtype, device=t.device)
+        return AbelianTensor._flat(ref, ref.struct, t.data, dtype=t.data.dtype)
+    src, dst = t.struct, ref.struct
+
+    def build():
+        pairs = [(src.index[k], j) for j, k in enumerate(dst.keys) if k in src.index]
+        si = np.array([p[0] for p in pairs], dtype=np.int64)
+        di = np.array([p[1] for p in pairs], dtype=np.int64)
+        if any(src.shapes[i] != dst.shapes[j] for i, j in pairs):
+            raise ValueError("reindex_like: a shared block has another shape")
+        sizes = dst.sizes[di].reshape(-1, 1)
+        ones = np.ones_like(sizes)
+        return PermuteTable(src.offsets[si], dst.offsets[di], sizes, ones, ones), \
+            len(pairs) < len(dst.keys)
+
+    table, partial = PLANS.get_or(("reindex", src, dst), build)
+    data = permute_flat(t.data, table, dst.numel, zero_fill=partial)
     return AbelianTensor._flat(ref, ref.struct, data, dtype=t.data.dtype)

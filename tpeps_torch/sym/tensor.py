@@ -17,6 +17,13 @@ output blocks with their charge-matched pairs, fermionic signs included
 run on ``block_permute`` too.  Charge rule, signatures, fermionic grading
 and the leg conventions are those of the JAX package.
 
+Gradients: every flat-buffer operation goes through
+:func:`permute_flat` or :func:`gemm_flat`, ``autograd.Function``s whose
+forward and backward call the K8 wrappers on detached buffers: the
+backward of a copy is the copy through the table's inverse, that of a
+product two ``block_gemm``s on the tables derived from its plan (one with
+B read transposed, one with A), each cached with the forward table.
+
 Supported symmetries: "U1", "Z2", "U1xU1".
 """
 
@@ -30,6 +37,7 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+from torch.autograd.function import once_differentiable
 
 from ..kernels.blocksparse import (GemmTable, PermuteTable, block_gemm, block_permute,
                                    contiguous_strides)
@@ -91,6 +99,68 @@ def leg(charge_dims, pshift: int = 0) -> LegCharges:
     """Build a LegCharges from a {charge: dim} mapping."""
     items = sorted(charge_dims.items(), key=lambda x: (str(type(x[0])), x[0]))
     return LegCharges(tuple(items), pshift)
+
+
+# ---------------------------------------------------------------------------
+# differentiable flat-buffer operations (K8 forward and backward)
+# ---------------------------------------------------------------------------
+
+
+class _PermuteFlat(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, src, table, numel, zero_fill):
+        dst = (torch.zeros if zero_fill else torch.empty)(numel, dtype=src.dtype,
+                                                          device=src.device)
+        block_permute(src.detach(), dst, table)
+        ctx.table, ctx.src_numel = table, src.numel()
+        return dst
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        gsrc = torch.zeros(ctx.src_numel, dtype=g.dtype, device=g.device)
+        return block_permute(g.detach().contiguous(), gsrc, ctx.table.inverse()), None, None, None
+
+
+class _GemmFlat(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, a, b, table, numel, zero_fill):
+        out = (torch.zeros if zero_fill else torch.empty)(numel, dtype=a.dtype, device=a.device)
+        block_gemm(a.detach(), b.detach(), out, table)
+        ctx.save_for_backward(a, b)
+        ctx.table = table
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        a, b = (t.detach() for t in ctx.saved_tensors)
+        ta, tb = ctx.table.grad_tables()
+        g = g.detach().contiguous()
+        da = db = None
+        if ctx.needs_input_grad[0]:
+            da = block_gemm(g, b.conj().resolve_conj(), torch.zeros_like(a), ta)
+        if ctx.needs_input_grad[1]:
+            db = block_gemm(a.conj().resolve_conj(), g, torch.zeros_like(b), tb)
+        return da, db, None, None, None
+
+
+def permute_flat(src, table: PermuteTable, numel: int, zero_fill: bool = False):
+    """The flat ``src`` copied through ``table`` into a new buffer of ``numel``
+    elements (zeros where no entry writes, when ``zero_fill``); differentiable.
+    Meta buffers give a meta result (a structure-only run)."""
+    if src.is_meta:
+        return torch.empty(numel, dtype=src.dtype, device=src.device)
+    return _PermuteFlat.apply(src, table, numel, zero_fill)
+
+
+def gemm_flat(a, b, table: GemmTable, numel: int, zero_fill: bool = False):
+    """``block_gemm`` of the flat operands into a new buffer of ``numel``
+    elements (zeros outside the table's output blocks, when ``zero_fill``);
+    differentiable (complex operands on the CPU twin only)."""
+    if a.is_meta:
+        return torch.empty(numel, dtype=a.dtype, device=a.device)
+    return _GemmFlat.apply(a, b, table, numel, zero_fill)
 
 
 # ---------------------------------------------------------------------------
@@ -554,10 +624,7 @@ class AbelianTensor:
             scale = _perm_signs(_parities(self.struct, self.sym, self._pshifts()), axes)
             key = ("fsign", self.sym, self._pshifts())
         out, table, _ = _permute_plan(self.struct, axes, key, scale)
-        data = torch.empty(out.numel, dtype=self.data.dtype, device=self.device)
-        if not data.is_meta:
-            block_permute(self.data, data, table)
-        return AbelianTensor._flat(self, out, data, **meta)
+        return AbelianTensor._flat(self, out, permute_flat(self.data, table, out.numel), **meta)
 
     def __add__(self, other):
         assert self.signature == other.signature and self.n == other.n
@@ -632,9 +699,9 @@ class AbelianTensor:
     def _operands(self, other, plan, dtype):
         abuf, bbuf = self.data.to(dtype), other.data.to(dtype)
         if plan.perm_a is not None:
-            abuf = block_permute(abuf, torch.empty_like(abuf), plan.perm_a)
+            abuf = permute_flat(abuf, plan.perm_a, abuf.numel())
         if plan.perm_b is not None:
-            bbuf = block_permute(bbuf, torch.empty_like(bbuf), plan.perm_b)
+            bbuf = permute_flat(bbuf, plan.perm_b, bbuf.numel())
         return abuf, bbuf
 
     def dot_operands(self, other, axes, out_like=None):
@@ -652,10 +719,9 @@ class AbelianTensor:
         block structure (a superset of the produced blocks; the others are
         zero) — the frozen engine's fixed block sets."""
         plan, out_dtype, meta = self._dot_setup(other, axes, out_like)
-        alloc = torch.zeros if out_like is not None else torch.empty
-        out = alloc(plan.out.numel, dtype=out_dtype, device=self.device)
-        if not out.is_meta:  # meta buffers: a structure-only run (close_structure)
-            block_gemm(*self._operands(other, plan, out_dtype), out, plan.gemm)
+        # meta buffers: a structure-only run (close_structure)
+        out = gemm_flat(*self._operands(other, plan, out_dtype), plan.gemm, plan.out.numel,
+                        zero_fill=out_like is not None)
         return AbelianTensor._flat(self, plan.out, out, **meta)
 
     # ------------------------------------------------------------ fusion
@@ -838,9 +904,7 @@ def _sector_matrices(t: AbelianTensor, row_axes, col_axes):
         row_off, col_off, M)})``
     """
     plan = _sector_plan(t, row_axes, col_axes)
-    buf = torch.zeros(plan.numel, dtype=t.data.dtype, device=t.device)
-    if not buf.is_meta:
-        block_permute(t.data, buf, plan.table)
+    buf = permute_flat(t.data, plan.table, plan.numel, zero_fill=True)
     out = {}
     for q, (rk, ck, rd, cd, ro, co, base, R, C) in plan.sectors.items():
         out[q] = (rk, ck, rd, cd, ro, co, buf[base:base + R * C].view(R, C))
@@ -857,8 +921,7 @@ def _assemble(struct: Struct, entries, src, dtype, device):
     table = PermuteTable([e[1] for e in entries], struct.offsets[idx], shape,
                          np.array([e[3] for e in entries], dtype=np.int64).reshape(len(entries), rank),
                          contiguous_strides(shape))
-    out = torch.empty(struct.numel, dtype=dtype, device=device)
-    return out if out.is_meta else block_permute(src, out, table)
+    return permute_flat(src.to(dtype=dtype, device=device), table, struct.numel)
 
 
 def _isometry(t: AbelianTensor, plan: SectorPlan, cols: dict, new_leg, sig_last=-1, n=0):
