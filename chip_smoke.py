@@ -73,7 +73,7 @@ Phases (any failed check exits non-zero; there is no CPU fallback):
    ``close_structure``, ``run_frozen(max_iter=10, conv_tol=0)`` (ms per
    frozen move, split into corner, decompositions, absorption and commit),
    the same 10 moves dynamic against it (energies within AB_E_FROZEN_TOL,
-   the dynamic profile against ``keep``), ``converge_frozen`` to 1e-8 or 48
+   the dynamic profile against ``keep``), ``converge_frozen`` to 1e-8 or 24
    moves with its energy; (d) D=3, chi=18 card against the CPU twins: 6
    dynamic moves' spectra and the energy (1e-10), one more move's busy share
    read three ways, 10 frozen moves (C elementwise, T's magnitudes
@@ -99,6 +99,30 @@ Phases (any failed check exits non-zero; there is no CPU fallback):
    losses finite and not rising, every kernel of the path launched; (d)
    U(1) D=3 chi=9: the gradient on the card against the CPU twins' from one
    CPU-built closed (C0, T0), 1e-8 relative.
+10. the generic-cell abelian slice, a U(1) 2-site bipartite J1-J2 state
+   (j2=0.3) at D=8 (bench's aux profile), chi=160, float64: two random sites
+   from one seeded generator, each C4v-projected and flipped to the canonical
+   signature, written to JSON.  (b) the entry point
+   ``tpeps_torch.examples.j1j2.abelian.ctmrg_j1j2_u1 --tiling BIPARTITE`` for
+   GEN_ENTRY_SWEEPS sweeps (ms per sweep, host planning, energy, observables,
+   chi profiles, peak memory) and one more directional move's busy share;
+   (e) GEN_TRAIN_EPOCHS L-BFGS epoch(s) of
+   ``tpeps_torch.examples.j1j2.abelian.optim_j1j2_u1`` on the same file
+   (GEN_TRAIN_SWEEPS sweeps per context and frozen fixed point, the adjoint
+   at most GEN_ADJ_MAX_ITER iterations; losses and gradients finite, every
+   kernel of the path launched), whose first gradient closure is (d)
+   (frozen forward, adjoint, energy both ways, peak memory); on the closed
+   context of (e)'s epoch, (a) K10 against its twins at one frozen move's
+   shapes (``generic_epilogue`` bit-exact, ``sweep_commit``'s state
+   bit-exact and dist2 <= 1e-12 relative, ``generic_epilogue_vjp`` both ways
+   <= 1e-12 relative) with kernel, twin and bound times, and (c) the frozen
+   sweep (ms per sweep split into halves, decompositions, absorption,
+   epilogue/commit; busy share; no plan built) and the same sweeps
+   dynamically (energies within AB_E_FROZEN_TOL); (f) D=3: chi=18 dynamic
+   spectra and energy (GEN_SMALL_DYN sweeps) and 3 frozen sweeps (C, |T|)
+   card vs CPU (1e-10), the chi=9 gradient from a converged context card vs
+   CPU (1e-8 relative) and, on the card, the central difference along g/|g|
+   (> 0) next to |g|.
 
 Phase 2 also holds the kernels of the large-D slice against their twins at
 its shapes: ``eigh_small`` on Rayleigh-Ritz matrices of the D=7 path and on
@@ -124,6 +148,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 from pathlib import Path
 from unittest import mock
 
@@ -168,6 +193,13 @@ SOURCES = {  # kernel -> (source, TPU-path function it replaces)
                             "tpeps/ctm/c4v_abelian/frozen.py:73"),
     "adjoint_commit": ("tpeps_torch/csrc/frozen_commit.cu",
                        "tpeps/ctm/c4v_abelian/frozen.py:201"),
+    # the generic abelian frozen loop (K10)
+    "generic_epilogue": ("tpeps_torch/csrc/frozen_generic.cu",
+                         "tpeps/ctm/generic_abelian/frozen.py:35"),
+    "sweep_commit": ("tpeps_torch/csrc/frozen_generic.cu",
+                     "tpeps/ctm/generic_abelian/frozen.py:179"),
+    "generic_epilogue_vjp": ("tpeps_torch/csrc/frozen_generic.cu",
+                             "tpeps/ctm/generic_abelian/frozen.py:198"),
 }
 FORWARD = ("layer_contract", "corner_apply", "gram_ridge", "gram", "trsm_right_lower_h",
            "t_epilogue", "polar_unitary", "eigh_small")
@@ -186,7 +218,7 @@ TRAIN = ("gram_ridge", "gram", "trsm_right_lower_h", "trsm_right_lower", "polar_
 # the abelian slice (phase 8): bench.py's U(1) C4v D=8 profile at chi=160
 AB_PHYS, AB_AUX, AB_CHI = {-1: 1, 1: 1}, {-2: 1, -1: 2, 0: 2, 1: 2, 2: 1}, 160
 AB_ENTRY_MOVES, AB_WARM_MOVES, AB_FROZEN_MOVES = 8, 4, 10
-AB_CONVERGE_ITER, AB_CONVERGE_TOL = 48, 1e-8
+AB_CONVERGE_ITER, AB_CONVERGE_TOL = 24, 1e-8  # 48 before phase 10 needed the time
 AB_PK = dict(svd_reltol=1e-12, eps_multiplet=1e-12)  # bench.py's projector arguments
 AB_SMALL_AUX, AB_SMALL_CHI, AB_SMALL_TOL = {-1: 1, 0: 1, 1: 1}, 18, 1e-10
 # the frozen against the dynamic engine over the same 10 moves from the
@@ -205,6 +237,22 @@ AB_GRAD_SMALL_CHI, AB_GRAD_SMALL_ITER, AB_GRAD_SMALL_TOL = 9, 40, 1e-8
 AB_ADJ_CASES = {"converging": (0.5, 0.5, 1.0, 100), "four_growths": (1.2, 1.2, 1.0, 100),
                 "blow_up": (200.0, 0.5, 1.0, 100), "max_iter": (0.99, 0.99, 1.0, 7),
                 "decay_then_growth": (0.3, 1.5, 1e-3, 100)}
+# the generic abelian slice (phase 10): a U(1) 2-site bipartite state at bench's
+# D=8 profile, chi=160; sweeps of the entry point (b), of the frozen run and of
+# its dynamic twin (c), and of the training entry point's contexts and frozen
+# fixed points (e), whose adjoint takes at most GEN_ADJ_MAX_ITER iterations,
+# and its epochs: a D=8 chi=160 sweep takes 15-27 s on the H100, an epoch
+# makes two gradients, and two epochs did not fit the script's 1200 s; the
+# D=3 card-vs-CPU check (f): chi, dynamic sweeps, frozen sweeps, gradient
+# tolerance
+GEN_ENTRY_SWEEPS, GEN_FROZEN_SWEEPS, GEN_TRAIN_SWEEPS, GEN_ADJ_MAX_ITER = 1, 1, 1, 1
+GEN_TRAIN_EPOCHS = 1
+GEN_SMALL_CHI, GEN_SMALL_DYN, GEN_SMALL_FROZEN = 18, 3, 3
+GEN_GRAD_SMALL_CHI, GEN_GRAD_SMALL_TOL = 9, 1e-8
+GENERIC = ("block_permute", "block_gemm", "generic_epilogue", "sweep_commit")
+GEN_TRAIN = ("block_permute", "block_gemm", "block_permute_grad", "block_gemm_grad",
+             "generic_epilogue", "sweep_commit", "generic_epilogue_vjp", "adjoint_commit")
+GEN_K10 = ("generic_epilogue", "sweep_commit", "generic_epilogue_vjp")
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, FP64 on the tensor cores
 # (DMMA) and on the CUDA cores
 HBM_BPS, FP64_TC, FP64_CC, INT8_TC = 3.35e12, 67e12, 34e12, 1979e12
@@ -1210,7 +1258,7 @@ def phase8(dev) -> tuple:
         err = rel_err(out_k, out_t)
         err_max = max(err_max, float((out_k - out_t).abs().max()))
         ms_k, ms_t = min(cuda_ms(kern), cuda_ms(kern)), cuda_ms(twin, reps=2)
-        ngroups = len(g.groups(dev)[0])
+        ngroups = len(g.groups(dev)[3])
         flops, elems = g.work()
         b_ms, b_by = bound(8 * elems, flops, FP64_TC)
         for key, v in (("ms", ms_k), ("plain_ms", ms_t), ("bound_ms", b_ms), ("flops", flops),
@@ -1504,7 +1552,8 @@ def adjoint_diagnosis(a, C0, T0, keep, cfg, dev) -> None:
         leaves = [x.data.detach().clone().requires_grad_() for x in (a, C, T)]
         with torch.enable_grad():
             oC, oT = ab_frozen.move_frozen(*(AbelianTensor._flat(x, x.struct, v)
-                                             for x, v in zip((a, C, T), leaves)), keep, reg)
+                                             for x, v in zip((a, C, T), leaves)), keep, reg,
+                                           sg_norm=False)
             g = torch.autograd.grad((oC.data, oT.data), leaves, (yC / norm, yT / norm))
         out.append(f"{reg:g}: " + " / ".join(f"{float(x.norm()):.3e}" for x in g))
     print("  one move's VJP of a unit cotangent, norms a / C / T at ad_decomp_reg "
@@ -1603,15 +1652,19 @@ def phase9(dev) -> tuple:
     pC = ab_frozen.partner_index(C.struct, ab_frozen.C_PARTNER, dev)
     pT = ab_frozen.partner_index(T.struct, ab_frozen.T_PARTNER, dev)
     gC, gT = rnd(nC.data.numel()), rnd(nT.data.numel())
-    xk = kfrozen.frozen_epilogue_vjp(nC.data, nT.data, pC, pT, gC, gT)
-    xt = kfrozen.frozen_epilogue_vjp_twin(nC.data, nT.data, pC, pT, gC, gT)
-    e = max(rel_err(u, v) for u, v in zip(xk, xt))
-    check(e <= TOL[torch.float64], f"frozen_epilogue_vjp on C' {nC.data.numel()}, T' "
-                                   f"{nT.data.numel()} entries: rel err {e:.1e} <= 1e-12")
+    blk = (ab_frozen.block_index(C.struct, dev), ab_frozen.block_index(T.struct, dev),
+           len(C.struct.keys), len(T.struct.keys))
+    for sg in (False, True):
+        xk = kfrozen.frozen_epilogue_vjp(nC.data, nT.data, pC, pT, gC, gT, *blk, sg)
+        xt = kfrozen.frozen_epilogue_vjp_twin(nC.data, nT.data, pC, pT, gC, gT, *blk, sg)
+        e = max(rel_err(u, v) for u, v in zip(xk, xt))
+        check(e <= TOL[torch.float64], f"frozen_epilogue_vjp (sg_norm={sg}) on C' "
+                                       f"{nC.data.numel()}, T' {nT.data.numel()} entries: rel "
+                                       f"err {e:.1e} <= 1e-12")
     nel = nC.data.numel() + nT.data.numel()
     time_case(rec, "frozen_epilogue_vjp",
-              lambda: kfrozen.frozen_epilogue_vjp(nC.data, nT.data, pC, pT, gC, gT),
-              lambda: kfrozen.frozen_epilogue_vjp_twin(nC.data, nT.data, pC, pT, gC, gT),
+              lambda: kfrozen.frozen_epilogue_vjp(nC.data, nT.data, pC, pT, gC, gT, *blk),
+              lambda: kfrozen.frozen_epilogue_vjp_twin(nC.data, nT.data, pC, pT, gC, gT, *blk),
               None, 8 * 4 * nel, 8 * nel, FP64_CC)
     # one adjoint step, then the crafted loops
     da_i, uC, uT = rnd(a.data.numel()), rnd(C.data.numel()), rnd(T.data.numel())
@@ -1771,26 +1824,417 @@ def phase9(dev) -> tuple:
     return rec, counts_grad, counts_train
 
 
+def gen_state(aux, dev, seed=0, neel=False):
+    """The generic slice's state: two random U(1) sites from one seeded CPU
+    generator, each C4v-projected in the uniform signature and flipped to the
+    canonical one (``neel``: site (1, 0) the Neel partner of site (0, 0)), on
+    the bipartite 2-site cell."""
+    from tpeps_torch.ipeps.ipeps_abelian import random_bipartite_abelian
+    from tpeps_torch.sym.tensor import leg
+
+    return random_bipartite_abelian(torch.Generator().manual_seed(seed), "U1", leg(AB_PHYS),
+                                    leg(aux), 1, neel=neel, device=dev)
+
+
+def neel_state_np(aux, seed=0):
+    """The Neel 2-site state of the CPU tests (tests/test_torch_abelian_generic.py)
+    on the CPU: site (0, 0) uniform [0, 1) - 0.5 per allowed block from
+    ``np.random.RandomState(seed)`` in sorted key order, C4v-projected,
+    (d, r) flipped, normalized; site (1, 0) its Neel partner."""
+    from tpeps_torch.ipeps.ipeps_abelian import (IPEPS_ABELIAN, bipartite,
+                                                 make_c4v_symm_A1_abelian)
+    from tpeps_torch.sym.tensor import AbelianTensor, leg
+
+    rng = np.random.RandomState(seed)
+    a = AbelianTensor("U1", (1,) * 5, (leg(AB_PHYS),) + (leg(aux),) * 4, 1)
+    a = a.copy_with({q: torch.as_tensor(rng.rand(*a.block_shape(q)) - 0.5)
+                     for q in sorted(a.all_allowed_blocks())})
+    A = make_c4v_symm_A1_abelian(a).flip_charges((3, 4))
+    A = A * (1.0 / float(A.norm()))
+    B = A.charge_conjugate()
+    B = B.copy_with({qs: (-b if qs[0] == 1 else b) for qs, b in B.blocks.items()})
+    return IPEPS_ABELIAN("U1", {(0, 0): A, (1, 0): B}, vertexToSite=bipartite, lX=2, lY=1)
+
+
+def gen_cfg(argv):
+    """A config of the generic training entry point's flags."""
+    from tpeps_torch.config import configure
+    from tpeps_torch.examples.j1j2.abelian.optim_j1j2_u1 import make_parser
+
+    return configure(make_parser().parse_args(argv))
+
+
+def flat_like(like, data):
+    from tpeps_torch.sym.tensor import AbelianTensor
+
+    return AbelianTensor._flat(like, like.struct, data)
+
+
+def gen_frozen(st, env, chi):
+    """Frozen profiles and the closed warm start of ``env``."""
+    from tpeps_torch.ctm.generic_abelian import frozen as gfz
+
+    profiles = gfz.freeze_profiles(st, env, chi, svd_reltol=1e-12, eps_multiplet=1e-12)
+    keeps = gfz._prof_dict(profiles)
+    return profiles, keeps, gfz.close_structure_generic(st, env, keeps)
+
+
+def phase10(dev) -> tuple:
+    print(f"== phase 10: the generic abelian slice, U(1) 2-site bipartite J1-J2 D=8 "
+          f"chi={AB_CHI} float64", flush=True)
+    from tpeps_torch.ctm.generic_abelian import ctmrg as gct
+    from tpeps_torch.ctm.generic_abelian import env as genv
+    from tpeps_torch.ctm.generic_abelian import frozen as gfz
+    from tpeps_torch.examples.j1j2.abelian import ctmrg_j1j2_u1
+    from tpeps_torch.examples.j1j2.abelian.optim_j1j2_u1 import main as gen_opt_main
+    from tpeps_torch.kernels import frozen_generic as kgen
+    from tpeps_torch.kernels import launch_counts, reset_launch_counts
+    from tpeps_torch.models.abelian.j1j2 import J1J2_ABELIAN
+    from tpeps_torch.optim import abelian as gen_optim
+    from tpeps_torch.optim.abelian import generic_abelian_losses
+    from tpeps_torch.profiling import PhaseTimers
+    from tpeps_torch.sym import tensor as ab_tensor
+    from tpeps_torch.sym.io import write_ipeps_abelian
+
+    # the plans of phases 8-9 hold the twins' element indices on the card
+    # (GBs at D=8): drop them, so that the peaks below are this phase's
+    ab_tensor.PLANS.clear()
+    torch.cuda.empty_cache()
+    rec = {}
+    st = gen_state(AB_AUX, dev)
+    model = J1J2_ABELIAN(j1=J1, j2=J2, device=dev)
+    pk = ["--CTMARGS_projector_svd_reltol", "1e-12", "--CTMARGS_projector_eps_multiplet", "1e-12"]
+    dirs = gct.sweep_directions(st, gfz.MOVE_SEQ)
+
+    # (b) the entry point on the written state, then one more sweep profiled
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "u1_bipartite_D8.json")
+        write_ipeps_abelian(st, path)
+        stats, envs, plan0 = [], [], ab_tensor.plan_cache_stats()
+        run = ctmrg_j1j2_u1.run
+
+        def kept_run(*args, **kw):  # the entry point's environment, for the profiled sweep
+            out = run(*args, **kw)
+            envs.append(out[0])
+            return out
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        with mock.patch.object(ctmrg_j1j2_u1, "run", kept_run):
+            e_entry, obs, labels = ctmrg_j1j2_u1.main(
+                ["--instate", path, "--tiling", "BIPARTITE", "--chi", str(AB_CHI), "--j1",
+                 str(J1), "--j2", str(J2), "--CTMARGS_ctm_max_iter", str(GEN_ENTRY_SWEEPS),
+                 "--CTMARGS_ctm_conv_tol", "0", *pk, "--GLOBALARGS_device", str(dev)],
+                stats=stats)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts_entry = launch_counts()
+        plan1 = ab_tensor.plan_cache_stats()
+        peak_entry = torch.cuda.max_memory_allocated()
+        sweep_s = [x["seconds"] for x in stats]
+        print(f"  entry point: {len(stats)} dynamic sweep(s) (6 directional moves over 2 sites "
+              "each): " + ", ".join(f"{1000 * x:.1f}" for x in sweep_s) + " ms; plans built "
+              f"{plan1['misses'] - plan0['misses']} in "
+              f"{plan1['build_seconds'] - plan0['build_seconds']:.2f} s of host time, "
+              f"{plan1['hits'] - plan0['hits']} reused; whole run {wall:.2f} s, energy + "
+              f"observables {wall - sum(sweep_s):.2f} s")
+        for k, v in sorted(stats[-1]["profiles"].items()):
+            print(f"  chi profile of C{k}: {v}")
+        print(f"  energy {e_entry:.12f}; " + ", ".join(f"{l}={v}" for l, v in zip(labels, obs)))
+        print(f"  peak memory {peak_entry / 2**30:.2f} GiB; launches "
+              + ", ".join(f"{k} {counts_entry[k]}" for k in GENERIC))
+        check(math.isfinite(e_entry) and all(math.isfinite(abs(complex(v))) for v in obs),
+              "generic entry point: energy and observables finite")
+        check(counts_entry["block_gemm"] > 0 and counts_entry["block_permute"] > 0,
+              "the generic entry point launched block_gemm and block_permute")
+        wall_b, dev_b = busy_share(lambda: gct.ctm_move(dirs[0], st, envs[-1], AB_CHI, AB_PK))
+        print(f"  one more dynamic directional move (a sixth of a sweep) under the profiler "
+              f"(plans cached): {1000 * wall_b:.1f} ms, busy share {dev_b / wall_b:.3f} "
+              f"({1000 * dev_b:.1f} ms device)")
+        del envs
+
+        # (e) the generic training entry point on the D=8 state, whose first
+        # gradient closure is (d); the closed context of its epoch is kept
+        # for (a) and (c)
+        stats_e, closed = [], []
+
+        def kept_close(*args, **kw):
+            out = gfz.close_structure_generic(*args, **kw)
+            closed.append((args[0], args[2], out))
+            return out
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        with warnings.catch_warnings(record=True) as caught, \
+                mock.patch.object(gen_optim, "close_structure_generic", kept_close):
+            warnings.simplefilter("always")
+            e_fin, hist = gen_opt_main(["--instate", path, "--chi", str(AB_CHI), "--j1", str(J1),
+                                        "--j2", str(J2), "--opt_max_iter", str(GEN_TRAIN_EPOCHS),
+                                        "--OPTARGS_line_search", "backtracking",
+                                        "--CTMARGS_ctm_max_iter", str(GEN_TRAIN_SWEEPS),
+                                        "--CTMARGS_grad_adjoint_max_iter", str(GEN_ADJ_MAX_ITER),
+                                        *pk, "--out_prefix", str(Path(tmp) / "gen_opt"),
+                                        "--GLOBALARGS_device", str(dev)], grad_stats=stats_e)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts_train = launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+    losses = hist["loss"]
+    g0 = stats_e[0]
+    print(f"  (d) the first gradient closure: frozen forward {g0['forward_seconds']:.2f} s "
+          f"({g0['forward_sweeps']} sweep(s) + the sweep that stores the backward's envs, "
+          f"dist2 {g0['forward_dist2']:.3e}, R != 1: {g0['sign_aligned']}); adjoint "
+          f"{g0['adjoint_seconds']:.2f} s, {g0['adjoint_iters']} iteration(s) of at most "
+          f"{GEN_ADJ_MAX_ITER} (each: the six moves' graphs rebuilt one at a time and their "
+          f"VJPs), {'diverged' if g0['adjoint_diverged'] else 'not diverged'} (|u|^2 "
+          f"{g0['adjoint_delta']:.3e}); the epoch's two closures {hist['t_grad'][0]:.2f} s, so "
+          f"the energy forward and backward ~"
+          f"{(hist['t_grad'][0] - sum(x['forward_seconds'] + x['adjoint_seconds'] for x in stats_e[:2])) / 2:.2f}"
+          f" s per closure; peak memory {peak / 2**30:.2f} GiB; its central difference along "
+          f"g/|g| is held at D=3 in (f): at {GEN_TRAIN_SWEEPS} sweep(s) per context the D=8 "
+          f"loss is far from its fixed point (ROADMAP Queue 3)")
+    print(f"  (e) the generic training entry point, {GEN_TRAIN_EPOCHS} epoch(s) at D=8 "
+          f"chi={AB_CHI}, {GEN_TRAIN_SWEEPS} sweep(s) per context and frozen fixed point, at "
+          f"most {GEN_ADJ_MAX_ITER} adjoint iteration(s): {wall:.2f} s (gradient closures "
+          + ", ".join(f"{x:.2f}" for x in hist["t_grad"]) + " s, line searches "
+          + ", ".join(f"{x:.2f}" for x in hist["t_ls"]) + f" s, the rest contexts and the "
+          f"FINAL measurement), {len(stats_e)} gradients (" + "; ".join(
+              f"{s_['forward_sweeps']} + 1 frozen sweeps in {s_['forward_seconds']:.2f} s, "
+              f"{s_['adjoint_iters']} adjoint iteration(s) in {s_['adjoint_seconds']:.2f} s"
+              f"{' DIVERGED' if s_['adjoint_diverged'] else ''}" for s_ in stats_e)
+          + f"), losses {losses}, FINAL {e_fin:.12f}; "
+          + ("; ".join(sorted({str(w.message) for w in caught})) or "no warning"))
+    print("  launches in the training run: " + ", ".join(f"{k} {counts_train[k]}"
+                                                         for k in GEN_TRAIN))
+    check(len(losses) == GEN_TRAIN_EPOCHS and all(math.isfinite(x) for x in losses)
+          and all(math.isfinite(x) for x in hist["grad_norm"])
+          and all(b <= a for a, b in zip(losses, losses[1:])) and math.isfinite(e_fin),
+          f"{GEN_TRAIN_EPOCHS} generic epoch(s) at D=8: losses and gradients finite"
+          + (", no loss above the one before" if GEN_TRAIN_EPOCHS > 1 else ""))
+    check(all(counts_train[k] > 0 for k in GEN_TRAIN),
+          "the generic training run launched every kernel of the generic training path")
+    rec_t = {"seconds_per_gradient": sum(hist["t_grad"]) / len(stats_e),
+             "seconds_training_run": wall, "peak_gib_training": peak / 2**30}
+
+    # (a) and (c) on the closed context of (e)'s epoch (freeze_profiles and
+    # close_structure_generic on one dynamic sweep's environment)
+    st_c, keeps, env_c = closed[0]
+    del closed
+    lay = gfz.FrozenLayout(st_c, env_c)
+    print(f"  the epoch's closed context: env {lay.numel} entries in {len(lay.keys)} tensors; "
+          "profiles " + "; ".join(f"{d}{c}: {sum(kp.values())}" for (d, c), kp in keeps.items()))
+
+    # (a) K10 against its twins at one frozen move's shapes
+    d0 = dirs[0]
+    raws = gfz._move_raw(d0, st_c, env_c, keeps)
+    raw = torch.cat([r.data for r in raws])
+    seg = lay.segments(d0, dev)
+    X = lay.flat(env_c)
+    Wk, Wt = X.clone(), X.clone()
+    kgen.generic_epilogue(raw, seg, Wk)
+    kgen.generic_epilogue_twin(raw, seg, Wt)
+    check(torch.equal(Wk, Wt), f"generic_epilogue on one frozen move's {len(seg.host)} "
+                               f"outputs ({raw.numel()} entries, {seg.nblk} blocks): "
+                               "bit-exact")
+    time_case(rec, "generic_epilogue", lambda: (kgen.generic_epilogue(raw, seg, Wk), Wk)[1],
+              lambda: (kgen.generic_epilogue_twin(raw, seg, Wt), Wt)[1], None,
+              8 * 2 * raw.numel(), raw.numel(), FP64_CC)
+    sk, stw = kgen.sweep_state(X, 10, 0.0), kgen.sweep_state(X, 10, 0.0)
+    kgen.sweep_commit(sk, Wk)
+    kgen.sweep_commit_twin(stw, Wk)
+    e_d = rel_err(sk.dist2, stw.dist2)
+    check(torch.equal(sk.S, stw.S) and torch.equal(sk.ctl[:2], stw.ctl[:2])
+          and e_d <= TOL[torch.float64],
+          f"sweep_commit over the env's {X.numel()} entries: state bit-exact, (i, done) "
+          f"{sk.ctl[:2].tolist()}, dist2 {float(sk.dist2):.6e} rel err {e_d:.1e} <= 1e-12")
+    sk2, st2 = kgen.sweep_state(X, 10**9, -1.0), kgen.sweep_state(X, 10**9, -1.0)
+    time_case(rec, "sweep_commit", lambda: (kgen.sweep_commit(sk2, Wk), sk2.S)[1],
+              lambda: (kgen.sweep_commit_twin(st2, Wk), st2.S)[1], None,
+              8 * 3 * X.numel(), 3 * X.numel(), FP64_CC)
+    rec["sweep_commit"]["max_abs_err"] = max(rec["sweep_commit"]["max_abs_err"],
+                                             float((sk.dist2 - stw.dist2).abs()))
+    gen = torch.Generator(device=dev).manual_seed(10)
+    g = torch.rand(X.numel(), generator=gen, device=dev, dtype=torch.float64) - 0.5
+    for sg in (True, False):
+        e = rel_err(kgen.generic_epilogue_vjp(raw, g, seg, sg),
+                    kgen.generic_epilogue_vjp_twin(raw, g, seg, sg))
+        check(e <= TOL[torch.float64], f"generic_epilogue_vjp (sg_norm={sg}): rel err "
+                                       f"{e:.1e} <= 1e-12")
+    time_case(rec, "generic_epilogue_vjp", lambda: kgen.generic_epilogue_vjp(raw, g, seg),
+              lambda: kgen.generic_epilogue_vjp_twin(raw, g, seg), None,
+              8 * 3 * raw.numel(), 5 * raw.numel(), FP64_CC)
+    del raws, raw, Wk, Wt, sk, stw, sk2, st2, g
+
+    # (c) the frozen engine from the context: its sweeps timed by parts under
+    # the profiler (the plans of its first move are (a)'s), then the same
+    # sweeps dynamically from the same start
+    plan0 = ab_tensor.plan_cache_stats()
+    timers, out = PhaseTimers(), []
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    wall_f, dev_f = busy_share(lambda: out.append(gfz.run_frozen_generic(
+        st_c, env_c, keeps, max_iter=GEN_FROZEN_SWEEPS, conv_tol=0.0, timers=timers)))
+    counts_frozen = launch_counts()
+    plan1 = ab_tensor.plan_cache_stats()
+    env_f, nf, d2f = out[0]
+    split = {k: 1000 * v / nf for k, v in timers.t.items()}
+    ms_frozen = 1000 * wall_f / nf
+    print(f"  frozen: {nf} sweep(s), dist2 {d2f:.3e}, {ms_frozen:.1f} ms/sweep under the "
+          f"profiler with phase events: " + ", ".join(f"{k} {v:.1f}" for k, v in split.items())
+          + f" ms; busy share {dev_f / wall_f:.3f} ({1000 * dev_f / nf:.1f} ms device per "
+          f"sweep); {plan1['misses'] - plan0['misses']} plans built (plan cache "
+          f"{plan1['size']} of {ab_tensor.PLANS.size})")
+    print("  launches in the frozen run: " + ", ".join(f"{k} {counts_frozen[k]}"
+                                                      for k in GENERIC))
+    check(plan1["misses"] == plan0["misses"],
+          "the frozen sweep built no plan after the epoch's (its first pass)")
+    check(all(counts_frozen[k] > 0 for k in GENERIC),
+          "the frozen run launched block_gemm, block_permute, generic_epilogue and "
+          "sweep_commit")
+    rec["generic_epilogue"]["ms_per_frozen_sweep"] = ms_frozen
+    rec["generic_epilogue"]["frozen_sweep_split_ms"] = split
+    env_d = env_c
+    t0 = time.perf_counter()
+    for _ in range(nf):
+        for d in dirs:
+            env_d = gct.ctm_move(d, st_c, env_d, AB_CHI, AB_PK)
+    torch.cuda.synchronize()
+    ms_dyn = 1000 * (time.perf_counter() - t0) / nf
+    e_fz = float(model.energy_per_site(st_c, env_f))
+    e_dy = float(model.energy_per_site(st_c, env_d))
+    check(abs(e_fz - e_dy) <= AB_E_FROZEN_TOL,
+          f"energy after {nf} sweep(s) from the context: frozen {e_fz:.12f}, dynamic "
+          f"{e_dy:.12f} ({ms_dyn:.1f} ms/sweep), |dE| {abs(e_fz - e_dy):.2e} <= "
+          f"{AB_E_FROZEN_TOL:.0e}")
+    del env_f, env_d, env_c
+
+    rec["generic_epilogue_vjp"].update(rec_t)
+
+    # (f) D=3: card against the CPU twins from one CPU-built start
+    st_c = gen_state(AB_SMALL_AUX, "cpu", seed=1)
+    cfg_s = gen_cfg(["--chi", str(GEN_SMALL_CHI), "--CTMARGS_ctm_max_iter", str(GEN_SMALL_DYN),
+                     "--CTMARGS_ctm_conv_tol", "0"])
+    out = []
+    for where in ("cpu", dev):
+        st_s = st_c.to(where)
+        env_s, _ = gct.run(st_s, genv.init_env(st_s, GEN_SMALL_CHI), cfg_s.ctm)
+        out.append((gct._corner_spectra(env_s, GEN_SMALL_CHI), env_s, float(
+            J1J2_ABELIAN(j1=J1, j2=J2, device=where).energy_per_site(st_s, env_s))))
+    d_spec = float(np.abs(out[0][0] - out[1][0]).max())
+    check(d_spec <= AB_SMALL_TOL and abs(out[0][2] - out[1][2]) <= AB_SMALL_TOL,
+          f"D=3 chi={GEN_SMALL_CHI} card vs CPU: {GEN_SMALL_DYN} dynamic sweeps' corner spectra "
+          f"max diff {d_spec:.2e}, energy |dE| {abs(out[0][2] - out[1][2]):.2e} <= "
+          f"{AB_SMALL_TOL:.0e}")
+    _, keeps_s, envc_s = gen_frozen(st_c, out[0][1], GEN_SMALL_CHI)
+    res = []
+    for where in ("cpu", dev):
+        e = genv.ENV_ABELIAN(GEN_SMALL_CHI, {k: t.to(where) for k, t in envc_s.C.items()},
+                             {k: t.to(where) for k, t in envc_s.T.items()})
+        res.append(gfz.run_frozen_generic(st_c.to(where), e, keeps_s, max_iter=GEN_SMALL_FROZEN,
+                                          conv_tol=0.0))
+    (ec, nc, dc), (ed, nd, dd) = res
+    e_C = max(float((ec.C[k].data - ed.C[k].data.cpu()).abs().max()) for k in ec.C)
+    e_T = max(float((ec.T[k].data.abs() - ed.T[k].data.cpu().abs()).abs().max()) for k in ec.T)
+    e_Ts = max(float((ec.T[k].data - ed.T[k].data.cpu()).abs().max()) for k in ec.T)
+    check(nc == nd and e_C <= AB_SMALL_TOL and e_T <= AB_SMALL_TOL,
+          f"D=3 frozen {nc} sweeps card vs CPU: C elementwise {e_C:.2e}, |T| elementwise "
+          f"{e_T:.2e} <= {AB_SMALL_TOL:.0e} (T signed {e_Ts:.2e}), dist2 {dd:.6e} vs {dc:.6e}")
+    # the gradient of the training loss (normalized sites, the frozen fixed
+    # point's implicit adjoint, the energy) from one CPU-built context, on the
+    # Neel state of the CPU tests, whose frozen sweep reaches its fixed point
+    st_g = neel_state_np(AB_SMALL_AUX)
+    cfg_g = gen_cfg(["--chi", str(GEN_GRAD_SMALL_CHI), "--CTMARGS_ctm_max_iter", "30",
+                     "--CTMARGS_ctm_conv_tol", "1e-10", "--GLOBALARGS_device", "cpu"])
+    _, ctx_fn_g, _, _ = generic_abelian_losses(st_g, J1J2_ABELIAN(
+        j1=J1, j2=J2, device="cpu").energy_per_site, cfg_g)
+    with torch.no_grad():
+        profiles_g, ctx_g = ctx_fn_g({c: a.data for c, a in st_g.sites.items()})
+    grads = []
+    for where in ("cpu", dev):
+        st_w = st_g.to(where)
+        conv = gfz.make_converge_frozen_generic(st_w, GEN_GRAD_SMALL_CHI, profiles_g,
+                                                gfz.MOVE_SEQ, 30, 1e-10, 1e-12)
+        pw = {c: a.data.clone().requires_grad_() for c, a in st_w.sites.items()}
+        sites = {c: flat_like(st_w.sites[c], pw[c]) for c in pw}
+        sites = {c: a * (1.0 / a.norm()) for c, a in sites.items()}
+        stats_w = {}
+        e_w = genv.ENV_ABELIAN(GEN_GRAD_SMALL_CHI, {k: t.to(where) for k, t in ctx_g.C.items()},
+                               {k: t.to(where) for k, t in ctx_g.T.items()})
+        envf = conv(sites, e_w, stats_w)
+        st_n = type(st_w)(st_w.sym, sites, st_w.vertexToSite, st_w.lX, st_w.lY)
+        lw = J1J2_ABELIAN(j1=J1, j2=J2, device=where).energy_per_site(st_n, envf)
+        gw = torch.autograd.grad(lw, list(pw.values()))
+        grads.append((float(lw.detach()), torch.cat([x.reshape(-1).cpu() for x in gw]),
+                      stats_w))
+        if where != "cpu":  # a step along -g descends: the central difference along g/|g|
+            gn = float(torch.sqrt(sum((x ** 2).sum() for x in gw)))
+            dv = {c: x / gn for c, x in zip(pw, gw)}
+            with torch.no_grad():
+                def loss_at(sign):
+                    s_ = {c: flat_like(st_w.sites[c], st_w.sites[c].data + sign * 1e-5 * dv[c])
+                          for c in pw}
+                    s_ = {c: a * (1.0 / a.norm()) for c, a in s_.items()}
+                    st_s = type(st_w)(st_w.sym, s_, st_w.vertexToSite, st_w.lX, st_w.lY)
+                    return float(J1J2_ABELIAN(j1=J1, j2=J2, device=where).energy_per_site(
+                        st_s, conv(s_, e_w)))
+                fd_g = (loss_at(1.0) - loss_at(-1.0)) / 2e-5
+    (lc, gc, sc), (ld, gd, sd) = grads
+    check(math.isfinite(fd_g) and fd_g > 0,
+          f"D=3 chi={GEN_GRAD_SMALL_CHI} on the card, a step along -g descends: the central "
+          f"difference along g/|g| (h=1e-5) {fd_g:.9e} > 0, |g| {float(gd.norm()):.9e}, "
+          f"relative difference {abs(fd_g - float(gd.norm())) / float(gd.norm()):.2e}")
+    e_g = rel_err(gd, gc)
+    check(e_g <= GEN_GRAD_SMALL_TOL and abs(lc - ld) <= AB_SMALL_TOL,
+          f"D=3 chi={GEN_GRAD_SMALL_CHI} generic gradient card vs CPU: rel err {e_g:.2e} <= "
+          f"{GEN_GRAD_SMALL_TOL:.0e}, loss |dE| {abs(lc - ld):.2e}; forward sweeps "
+          f"{sd['forward_sweeps']} (CPU {sc['forward_sweeps']}), adjoint iterations "
+          f"{sd['adjoint_iters']} (CPU {sc['adjoint_iters']}), R != 1 {sd['sign_aligned']} "
+          f"(CPU {sc['sign_aligned']})")
+    return rec, counts_entry, counts_frozen, counts_train
+
+
 def main() -> None:
+    t_start = time.perf_counter()
+
+    def lap(n):  # the script's seconds so far, at the end of phase n
+        print(f"  phase {n} ended at {time.perf_counter() - t_start:.1f} s", flush=True)
+
     smi = phase0()
     dev = torch.device("cuda", 0)
     phase1()
+    lap(1)
     rec = phase2(dev)
     rec.update(phase2_large_d(dev))
+    lap(2)
     counts_fwd = phase3(dev)
     phase4(dev)
+    lap(4)
     counts_train = phase5(dev)
+    lap(5)
     phase6(dev)
+    lap(6)
     counts_large = phase7(dev)
+    lap(7)
     rec_ab, counts_ab, counts_fz = phase8(dev)
     rec.update(rec_ab)
+    lap(8)
     rec_tr, counts_grad, counts_abtr = phase9(dev)
     rec.update(rec_tr)
+    lap(9)
+    rec_gen, cg_entry, cg_frozen, cg_train = phase10(dev)
+    rec.update(rec_gen)
+    lap(10)
     # launches: on the training path for its kernels, on the large-D slice
     # for K5/K7, on the abelian entry point for K8 and converge_frozen for
     # K9, on the abelian training entry point for K8's and K9's backward,
-    # else on the forward path (K1, K2, K4 and eigh_small)
-    main_run = lambda name: (counts_train if name in TRAIN
+    # else on the forward path (K1, K2, K4 and eigh_small); K10 on the generic
+    # training entry point
+    main_run = lambda name: (cg_train if name in GEN_K10
+                             else counts_train if name in TRAIN
                              else counts_large if name in LARGE_D
                              else counts_fz if name == "frozen_commit"
                              else counts_ab if name in ABELIAN
@@ -1805,7 +2249,10 @@ def main() -> None:
          "launches_abelian_entry_point": counts_ab[name],
          "launches_abelian_frozen": counts_fz[name],
          "launches_abelian_gradient": counts_grad[name],
-         "launches_abelian_training": counts_abtr[name], **rec[name]}
+         "launches_abelian_training": counts_abtr[name],
+         "launches_generic_entry_point": cg_entry[name],
+         "launches_generic_frozen": cg_frozen[name],
+         "launches_generic_training": cg_train[name], **rec[name]}
         for name in SOURCES
     ]
     print(smi)

@@ -49,7 +49,7 @@ from tpeps_torch.ctm.c4v_abelian import ctmrg, frozen
 from tpeps_torch.ctm.c4v_abelian import env as c4v_env
 from tpeps_torch.ipeps.ipeps_abelian import IPEPS_ABELIAN, make_c4v_symm_A1_abelian
 from tpeps_torch.kernels.frozen import (adjoint_commit_twin, adjoint_state,
-                                        frozen_epilogue_vjp_twin)
+                                        frozen_epilogue_vjp_twin, scale_vjp_twin, tie_weights)
 from tpeps_torch.linalg.svd import fix_svd_signs, svd_reg
 from tpeps_torch.models.abelian.j1j2 import J1J2_ABELIAN
 from tpeps_torch.sym import frozen as t_sfrozen
@@ -356,11 +356,14 @@ def test_frozen_epilogue_vjp_twin_matches_jax(corner):
     assert sorted(yC.blocks) == list(tC.struct.keys) and sorted(yT.blocks) == list(tT.struct.keys)
     pC = frozen.partner_index(tC.struct, frozen.C_PARTNER, CPU)
     pT = frozen.partner_index(tT.struct, frozen.T_PARTNER, CPU)
-    xC, xT = frozen_epilogue_vjp_twin(tC.data, tT.data, pC, pT, port(cC).data, port(cT).data)
+    bC, bT = frozen.block_index(tC.struct, CPU), frozen.block_index(tT.struct, CPU)
+    nb = (len(tC.struct.keys), len(tT.struct.keys))
+    xC, xT = frozen_epilogue_vjp_twin(tC.data, tT.data, pC, pT, port(cC).data, port(cT).data,
+                                      bC, bT, *nb)
     assert block_err(gC, tC, xC) < 1e-13 and block_err(gT, tT, xT) < 1e-13
     # the move's epilogue Function takes the same route
     rC, rT = (t.data.clone().requires_grad_() for t in (tC, tT))
-    y = frozen._Epilogue.apply(rC, rT, pC, pT)
+    y = frozen._Epilogue.apply(rC, rT, pC, pT, bC, bT, nb, False)
     g = torch.autograd.grad(y, (rC, rT), (port(cC).data, port(cT).data))
     assert torch.equal(g[0], xC) and torch.equal(g[1], xT)
 
@@ -418,6 +421,133 @@ def test_adjoint_commit_twin_matches_jax_loop(name, capfd):
         assert abs(float(m.group(2)) - float(st.scal[0])) <= 1e-6 * float(st.scal[0]), printed
     else:
         assert "diverging" not in printed
+
+
+# ---------------------------------------------------------------------------
+# the repairs: sg_norm, the adjoint's limits, JAX's tie split
+# ---------------------------------------------------------------------------
+
+
+def _three_ties(rng, t, keys, idx):
+    """``t``'s blocks random, the listed elements set to the maximum 10: two
+    in one block and one in another (of another size)."""
+    blocks = {q: rng.rand(*np.shape(b)) - 0.5 for q, b in sorted(t.blocks.items())}
+    for q, i in zip(keys, idx):
+        blocks[q][i] = 10.0
+    return t.copy_with({q: jnp.asarray(b) for q, b in blocks.items()})
+
+
+def test_tie_split_matches_jax_three_ties(corner):
+    """Tied maxima in uneven blocks: JAX's scale (a max per block, then over
+    blocks) splits its derivative 1/4, 1/4, 1/2 over two ties in one block and
+    one in another, where an even split gives 1/3 each.  The shared scale
+    backward on such a C against ``jax.vjp`` of the JAX package's
+    ``_normalized(t, False)``; the ``frozen_epilogue_vjp`` twin (the C4v
+    epilogue) on a C whose symmetrization ties a pair inside the (0, 0) block
+    and a partner pair across two blocks (weights 1/6, 1/6, 1/3, 1/3) against
+    ``jax.vjp`` of the JAX package's epilogue; 1e-12."""
+    je = corner[3]
+    rng = np.random.RandomState(8)
+    q = next(k for k in sorted(je.C.blocks) if k[0] > 0)
+    jC3 = _three_ties(rng, je.C, ((0, 0), (0, 0), q), ((0, 1), (1, 0), (0, 0)))
+    tC3 = port(jC3)
+    b3 = frozen.block_index(tC3.struct, CPU)
+    n3 = len(tC3.struct.keys)
+    w = tie_weights(tC3.data, tC3.data.abs().max(), b3, n3)
+    assert sorted(w[w > 0].tolist()) == [0.25, 0.25, 0.5]
+    c3 = random_like(rng, jC3)
+    (gt,) = jax.vjp(lambda x: j_frozen._normalized(x, False), jC3)[1](c3)
+    assert block_err(gt, tC3, scale_vjp_twin(tC3.data, port(c3).data, b3, n3, False)) < 1e-12
+
+    jC = _three_ties(rng, je.C, ((0, 0), (0, 0), q, (q[1], q[0])),
+                     ((0, 1), (1, 0), (0, 0), (0, 0)))
+    jT = je.T.copy_with({k: jnp.asarray(rng.rand(*np.shape(b)) - 0.5)
+                         for k, b in sorted(je.T.blocks.items())})
+
+    def epilogue(nC, nT):
+        nC = 0.5 * (nC + nC.transpose(frozen.C_PARTNER).conj_blocks())
+        nT = 0.5 * (nT + nT.transpose(frozen.T_PARTNER).conj_blocks())
+        return j_frozen._normalized(nC, False), j_frozen._normalized(nT, False)
+
+    yC, yT = jax.eval_shape(epilogue, jC, jT)
+    cC, cT = random_like(rng, yC), random_like(rng, yT)
+    gC, gT = jax.vjp(epilogue, jC, jT)[1]((cC, cT))
+    tC, tT = port(jC), port(jT)
+    pC = frozen.partner_index(tC.struct, frozen.C_PARTNER, CPU)
+    pT = frozen.partner_index(tT.struct, frozen.T_PARTNER, CPU)
+    bC, bT = frozen.block_index(tC.struct, CPU), frozen.block_index(tT.struct, CPU)
+    xC, xT = frozen_epilogue_vjp_twin(tC.data, tT.data, pC, pT, port(cC).data, port(cT).data,
+                                      bC, bT, len(tC.struct.keys), len(tT.struct.keys))
+    assert block_err(gC, tC, xC) < 1e-12 and block_err(gT, tT, xT) < 1e-12
+
+
+@pytest.fixture(scope="module")
+def d2_ctx():
+    """A D=2 U(1) C4v state (aux {0:1, 1:1}), chi=4: JAX's init_env and six
+    dynamic moves, the frozen profile, the closed (C0, T0)."""
+    rng = np.random.RandomState(0)
+    a = j_tensor.AbelianTensor("U1", (1,) * 5, (j_tensor.leg(PHYS),)
+                               + (j_tensor.leg({0: 1, 1: 1}),) * 4, 1)
+    a = j_symm(a.copy_with({q: rng.rand(*a.block_shape(q)) - 0.5
+                            for q in sorted(a.all_allowed_blocks())}))
+    ja = a * (1.0 / float(a.norm()))
+    je = j_env.init_env(J_IPEPS_ABELIAN("U1", {(0, 0): ja}), 4)
+    for _ in range(6):
+        je = j_ctmrg.ctm_move_sl(ja, je, PK)
+    keep = j_frozen.freeze_from_env(je)
+    ta = port(ja)
+    C0, T0 = frozen.close_structure(ta, port(je.C), port(je.T), dict(keep))
+    return ta, keep, C0, T0
+
+
+def test_move_frozen_sg_norm_vjp_matches_jax(d2_ctx):
+    """One ``move_frozen`` at the defaults (``sg_norm=True``: the max-abs scales
+    detached) against eager ``jax.vjp`` of the JAX package's ``move_frozen`` at
+    its defaults, at D=2: the cotangents of a, C and T, 1e-10.  Where a gauge
+    tie makes the packages pick other signs, ``y_jax = R' y_port`` and the
+    port's VJP takes ``R' ct`` (as test_move_frozen_vjp_matches_jax)."""
+    ta, keep, C0, T0 = d2_ctx
+    (yC, yT), vjp = jax.vjp(lambda *x: j_frozen.move_frozen(*x, keep=dict(keep)),
+                            *(jax_tensor(t) for t in (ta, C0, T0)))
+    rng = np.random.RandomState(6)
+    cC, cT = random_like(rng, yC), random_like(rng, yT)
+    ga, gC, gT = vjp((cC, cT))
+    leaves = [t.data.clone().requires_grad_() for t in (ta, C0, T0)]
+    tC, tT = frozen.move_frozen(*(flat(t, x) for t, x in zip((ta, C0, T0), leaves)), keep)
+    rC = torch.sign(port(yC).data) * torch.sign(tC.data.detach())
+    rT = torch.sign(port(yT).data) * torch.sign(tT.data.detach())
+    assert torch.allclose(port(yC).data, rC * tC.data.detach(), atol=1e-12)
+    assert torch.allclose(port(yT).data, rT * tT.data.detach(), atol=1e-12)
+    g = torch.autograd.grad((tC.data, tT.data), leaves, (rC * port(cC).data, rT * port(cT).data))
+    for jg, t, gi in zip((ga, gC, gT), (ta, C0, T0), g):
+        assert block_err(jg, t, gi) <= 1e-10 * max(float(gi.abs().max()), 1.0)
+    # the detached scale changes the VJP: sg_norm=False differs on this cotangent
+    leaves2 = [t.data.clone().requires_grad_() for t in (ta, C0, T0)]
+    uC, uT = frozen.move_frozen(*(flat(t, x) for t, x in zip((ta, C0, T0), leaves2)), keep,
+                                sg_norm=False)
+    g2 = torch.autograd.grad((uC.data, uT.data), leaves2, (rC * port(cC).data,
+                                                           rT * port(cT).data))
+    assert float((g2[0] - g[0]).abs().max()) > 1e-6
+
+
+@pytest.mark.parametrize("limit", [1, 3])
+def test_converge_frozen_adjoint_limits(slice_ctx, limit):
+    """``converge_frozen`` takes ``adjoint_max_iter`` and ``adjoint_tol`` (the
+    JAX package's arguments) and the backward obeys them: the adjoint stops
+    after ``adjoint_max_iter`` iterations (it needs 30+ here); with
+    ``adjoint_tol`` above 1 JAX's loop condition fails at once (zero
+    iterations, a zero gradient through the fixed point)."""
+    _, ta, (C, T), keep, _, _ = slice_ctx
+    env = c4v_env.ENV_C4V_ABELIAN(CHI, C, T)
+    for kw, n_expected in ((dict(adjoint_max_iter=limit), limit),
+                           (dict(adjoint_tol=10.0 * limit), 0)):
+        calls = []
+        with mock.patch.object(frozen, "adjoint_commit",
+                               lambda *a: (calls.append(1), adjoint_commit_twin(*a))):
+            x = ta.data.clone().requires_grad_()
+            out = frozen.converge_frozen(flat(ta, x), env, keep, max_iter=10, **kw)
+            (g,) = torch.autograd.grad((out.C.data ** 2).sum() + (out.T.data ** 2).sum(), x)
+        assert len(calls) == n_expected and bool(torch.isfinite(g).all()), (kw, len(calls))
 
 
 # ---------------------------------------------------------------------------
@@ -588,7 +718,8 @@ def test_move_frozen_vjp_matches_jax(slice_ctx):
     cC, cT = random_like(rng, yC), random_like(rng, yT)
     ga, gC, gT = vjp((cC, cT))
     leaves = [t.data.clone().requires_grad_() for t in (ta, Cf, Tf)]
-    tC, tT = frozen.move_frozen(*(flat(t, x) for t, x in zip((ta, Cf, Tf), leaves)), keep)
+    tC, tT = frozen.move_frozen(*(flat(t, x) for t, x in zip((ta, Cf, Tf), leaves)), keep,
+                                sg_norm=False)
     rC = torch.sign(port(yC).data) * torch.sign(tC.data.detach())
     rT = torch.sign(port(yT).data) * torch.sign(tT.data.detach())
     assert torch.allclose(port(yC).data, rC * tC.data, atol=1e-12)

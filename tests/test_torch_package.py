@@ -27,6 +27,8 @@ from tpeps_torch.kernels.polar import polar_unitary, polar_vjp
 from tpeps_torch.kernels.blocksparse import GemmTable, PermuteTable, block_gemm, block_permute
 from tpeps_torch.kernels.frozen import (AdjointState, FrozenState, adjoint_commit, frozen_commit,
                                         frozen_epilogue_vjp)
+from tpeps_torch.kernels.frozen_generic import (SweepState, generic_epilogue,
+                                                generic_epilogue_vjp, segment_table, sweep_commit)
 from tpeps_torch.models.j1j2 import J1J2_C4V_BIPARTITE
 
 REPO = Path(__file__).resolve().parent.parent
@@ -70,6 +72,10 @@ def _wrapper_calls(make):
     pidx8 = torch.zeros(8, dtype=torch.int64, device=W.device)
     astate = AdjointState(make((4,)), make((3,)), torch.zeros(6, dtype=torch.int32,
                                                                device=W.device))
+    blk6 = torch.zeros(6, dtype=torch.int32, device=W.device)
+    blk8 = torch.zeros(8, dtype=torch.int32, device=W.device)
+    seg = segment_table([(0, [2, 4])], W.device)
+    sstate = SweepState(make((8,)), make((1,)), make((1,)), ctl)
     return {
         "layer_contract": lambda: layer_contract(W, X, Y, n_k=1),
         "corner_apply": lambda: corner_apply(make((12, 12)), P),
@@ -91,11 +97,15 @@ def _wrapper_calls(make):
                                                torch.zeros(8, dtype=torch.int64,
                                                            device=W.device)),
         "frozen_epilogue_vjp": lambda: frozen_epilogue_vjp(make((6,)), make((8,)), pidx, pidx8,
-                                                           make((6,)), make((8,))),
+                                                           make((6,)), make((8,)), blk6, blk8,
+                                                           1, 1),
         "adjoint_commit": lambda: adjoint_commit(astate, make((4,)), make((6,)), make((8,))),
         "block_permute_grad": lambda: block_permute(make((6,)), make((6,)), ptable.inverse()),
         "block_gemm_grad": lambda: block_gemm(make((6,)), make((12,)), make((8,)),
                                               gtable.grad_tables()[0]),
+        "generic_epilogue": lambda: generic_epilogue(make((6,)), seg, make((8,))),
+        "sweep_commit": lambda: sweep_commit(sstate, make((8,))),
+        "generic_epilogue_vjp": lambda: generic_epilogue_vjp(make((6,)), make((8,)), seg),
     }
 
 

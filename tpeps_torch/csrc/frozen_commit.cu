@@ -28,14 +28,19 @@
 // tpeps/ctm/c4v_abelian/frozen.py:_make_converge_frozen, :160-233) live here
 // too:
 //
-// frozen_epilogue_vjp: the backward of the epilogue above with the scale
-//   differentiated (the JAX package's move_frozen at sg_norm=False).  With z = sym(x),
-//   m = max|z| and y = z * (1/m): zbar = ybar/m - (sum ybar.z / m^2) w sign(z),
-//   w splitting 1 evenly over every element with |z| = m (a symmetrized
-//   off-diagonal maximum appears at least twice, bit for bit), and
-//   xbar = sym(zbar).  A reduction pass (per block: max, count at the max,
-//   sum ybar.z, for C and T) and an elementwise pass, in which every block
-//   first reduces the partials in the same fixed order; no atomics.
+// frozen_epilogue_vjp: the backward of the epilogue above, the JAX package's
+//   move_frozen at sg_norm=False (the scale differentiated) or True (the
+//   scale detached).  With z = sym(x), m = max|z| and y = z * (1/m):
+//   zbar = ybar/m - (sum ybar.z / m^2) w sign(z), the second term dropped at
+//   sg_norm, and xbar = sym(zbar).  w is JAX's split of the max's derivative
+//   (a max per block of the frozen layout, then a max over blocks): 1 over
+//   the blocks whose max ties m, then over the tied elements of each such
+//   block, w = 1 / (n_tied_blocks * n_tied_in_the_block); a symmetrized
+//   off-diagonal maximum appears at least twice, bit for bit, in one block
+//   or in two.  A reduction pass (per grid block: max and sum ybar.z, for C
+//   and T), a pass counting the ties per layout block (integer atomics, so
+//   deterministic; skipped at sg_norm) and an elementwise pass, in which
+//   every grid block first reduces the partials in the same fixed order.
 //
 // adjoint_commit: one step of the Neumann adjoint's while_loop (:195-206):
 //   abar += abar_i, delta = |u|^2, grew = delta > delta_prev ? grew + 1 : 0,
@@ -147,40 +152,6 @@ int launch(T* C, T* Tt, T* dist2, const double* conv_tol, int* ctl, T* sym, T* p
 
 // ---- frozen_epilogue_vjp ---------------------------------------------------
 
-// (max, count at the max) merged with another pair
-template <typename T>
-__device__ __forceinline__ void merge_max(T& m, T& c, T m2, T c2) {
-  if (m2 > m) {
-    m = m2;
-    c = c2;
-  } else if (m2 == m) {
-    c += c2;
-  }
-}
-
-// block-wide merge of (max, count, sum); the result is in every thread
-template <typename T>
-__device__ void block_reduce3(T& m, T& c, T& d, T* bm, T* bc, T* bd) {
-  bm[threadIdx.x] = m;
-  bc[threadIdx.x] = c;
-  bd[threadIdx.x] = d;
-  __syncthreads();
-  for (int s = NT / 2; s > 0; s >>= 1) {
-    if (threadIdx.x < s) {
-      T m1 = bm[threadIdx.x], c1 = bc[threadIdx.x];
-      merge_max(m1, c1, bm[threadIdx.x + s], bc[threadIdx.x + s]);
-      bm[threadIdx.x] = m1;
-      bc[threadIdx.x] = c1;
-      bd[threadIdx.x] += bd[threadIdx.x + s];
-    }
-    __syncthreads();
-  }
-  m = bm[0];
-  c = bc[0];
-  d = bd[0];
-  __syncthreads();
-}
-
 template <typename T>
 __device__ __forceinline__ T sym_at(const T* __restrict__ raw, const int64_t* __restrict__ partner,
                                     int64_t e) {
@@ -188,22 +159,31 @@ __device__ __forceinline__ T sym_at(const T* __restrict__ raw, const int64_t* __
   return T(0.5) * (raw[e] + (p >= 0 ? raw[p] : T(0)));
 }
 
+// per block of the grid, the partial max of |z| and the partial sum g.z of
+// one tensor: out[b] and out[GRID + b]
 template <typename T>
 __device__ void epi_local(const T* __restrict__ raw, const int64_t* __restrict__ partner,
-                          const T* __restrict__ g, int64_t n, T* bm, T* bc, T* bd, T* out) {
-  T m = T(0), c = T(0), d = T(0);
+                          const T* __restrict__ g, int64_t n, T* buf, T* out) {
+  T m = T(0), d = T(0);
   const int64_t stride = static_cast<int64_t>(GRID) * NT;
   for (int64_t e = static_cast<int64_t>(blockIdx.x) * NT + threadIdx.x; e < n; e += stride) {
     const T z = sym_at(raw, partner, e);
-    merge_max(m, c, fabs(z), T(1));
+    m = fmax(m, fabs(z));
     d += g[e] * z;
   }
-  block_reduce3(m, c, d, bm, bc, bd);
+  m = block_reduce(m, true, buf);
+  d = block_reduce(d, false, buf);
   if (threadIdx.x == 0) {
-    out[3 * blockIdx.x] = m;
-    out[3 * blockIdx.x + 1] = c;
-    out[3 * blockIdx.x + 2] = d;
+    out[blockIdx.x] = m;
+    out[GRID + blockIdx.x] = d;
   }
+}
+
+template <typename T>
+__device__ T reduce_parts(const T* __restrict__ part, bool is_max, T* buf) {
+  T v = T(0);
+  for (int b = threadIdx.x; b < GRID; b += NT) v = is_max ? fmax(v, part[b]) : v + part[b];
+  return block_reduce(v, is_max, buf);
 }
 
 template <typename T>
@@ -212,31 +192,69 @@ epilogue_vjp_reduce(const T* __restrict__ rawC, const T* __restrict__ rawT,
                     const int64_t* __restrict__ pC, const int64_t* __restrict__ pT,
                     const T* __restrict__ gC, const T* __restrict__ gT, int64_t nC, int64_t nT,
                     T* __restrict__ part) {
-  __shared__ T bm[NT], bc[NT], bd[NT];
-  epi_local(rawC, pC, gC, nC, bm, bc, bd, part);
-  epi_local(rawT, pT, gT, nT, bm, bc, bd, part + 3 * GRID);
+  __shared__ T buf[NT];
+  epi_local(rawC, pC, gC, nC, buf, part);
+  epi_local(rawT, pT, gT, nT, buf, part + 2 * GRID);
+}
+
+// the elements at the max, counted per block of the frozen layout
+template <typename T>
+__device__ void epi_count(const T* __restrict__ raw, const int64_t* __restrict__ partner,
+                          const int* __restrict__ blk, int64_t n, const T* __restrict__ part,
+                          int* __restrict__ cnt, T* buf) {
+  const T m = reduce_parts(part, true, buf);
+  const int64_t stride = static_cast<int64_t>(GRID) * NT;
+  for (int64_t e = static_cast<int64_t>(blockIdx.x) * NT + threadIdx.x; e < n; e += stride)
+    if (fabs(sym_at(raw, partner, e)) == m) atomicAdd(&cnt[blk[e]], 1);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(NT)
+epilogue_vjp_count(const T* __restrict__ rawC, const T* __restrict__ rawT,
+                   const int64_t* __restrict__ pC, const int64_t* __restrict__ pT,
+                   const int* __restrict__ bC, const int* __restrict__ bT, int64_t nC, int64_t nT,
+                   const T* __restrict__ part, int* __restrict__ cntC, int* __restrict__ cntT) {
+  __shared__ T buf[NT];
+  epi_count(rawC, pC, bC, nC, part, cntC, buf);
+  epi_count(rawT, pT, bT, nT, part + 2 * GRID, cntT, buf);
+}
+
+// zbar at element e: g/m minus, at a tie, coef w sign(z) with the block's
+// weight w = 1 / (tied blocks * ties in e's block)
+template <typename T>
+__device__ __forceinline__ T zbar_at(const T* __restrict__ g, const int* __restrict__ blk,
+                                     const int* __restrict__ cnt, int64_t e, T z, T m, T inv,
+                                     T coef, T ntb, int sg_norm) {
+  T v = g[e] * inv;
+  if (!sg_norm && fabs(z) == m) {
+    const T w = T(1) / (ntb * T(cnt[blk[e]]));
+    v -= z > T(0) ? coef * w : -(coef * w);
+  }
+  return v;
 }
 
 template <typename T>
 __device__ void epi_apply(const T* __restrict__ raw, const int64_t* __restrict__ partner,
-                          const T* __restrict__ g, T* __restrict__ x, int64_t n,
-                          const T* __restrict__ part, T* bm, T* bc, T* bd) {
-  T m = T(0), c = T(0), d = T(0);
-  for (int b = threadIdx.x; b < GRID; b += NT) {
-    merge_max(m, c, part[3 * b], part[3 * b + 1]);
-    d += part[3 * b + 2];
-  }
-  block_reduce3(m, c, d, bm, bc, bd);
+                          const T* __restrict__ g, const int* __restrict__ blk,
+                          const int* __restrict__ cnt, int nblk, T* __restrict__ x, int64_t n,
+                          const T* __restrict__ part, int sg_norm, T* buf) {
+  const T m = reduce_parts(part, true, buf);
   const T inv = T(1) / m;
-  const T coef = d * inv * inv / c;
+  T coef = T(0), ntb = T(1);
+  if (!sg_norm) {
+    coef = reduce_parts(part + GRID, false, buf) * inv * inv;
+    T nb = T(0);
+    for (int b = threadIdx.x; b < nblk; b += NT) nb += cnt[b] > 0 ? T(1) : T(0);
+    ntb = block_reduce(nb, false, buf);
+  }
   const int64_t stride = static_cast<int64_t>(GRID) * NT;
   for (int64_t e = static_cast<int64_t>(blockIdx.x) * NT + threadIdx.x; e < n; e += stride) {
     const int64_t p = partner[e];
+    // z and its partner's z are equal bit for bit; their blocks may differ
     const T z = sym_at(raw, partner, e);
-    // the max term at a tie; z and its partner's z are equal bit for bit
-    const T tie = fabs(z) == m ? (z > T(0) ? coef : -coef) : T(0);
-    const T zb = g[e] * inv - tie;
-    x[e] = T(0.5) * (zb + (p >= 0 ? g[p] * inv - tie : T(0)));
+    const T zb = zbar_at(g, blk, cnt, e, z, m, inv, coef, ntb, sg_norm);
+    x[e] = T(0.5) * (zb + (p >= 0 ? zbar_at(g, blk, cnt, p, z, m, inv, coef, ntb, sg_norm)
+                                  : T(0)));
   }
 }
 
@@ -244,20 +262,27 @@ template <typename T>
 __global__ void __launch_bounds__(NT)
 epilogue_vjp_apply(const T* __restrict__ rawC, const T* __restrict__ rawT,
                    const int64_t* __restrict__ pC, const int64_t* __restrict__ pT,
-                   const T* __restrict__ gC, const T* __restrict__ gT, T* __restrict__ xC,
-                   T* __restrict__ xT, int64_t nC, int64_t nT, const T* __restrict__ part) {
-  __shared__ T bm[NT], bc[NT], bd[NT];
-  epi_apply(rawC, pC, gC, xC, nC, part, bm, bc, bd);
-  epi_apply(rawT, pT, gT, xT, nT, part + 3 * GRID, bm, bc, bd);
+                   const T* __restrict__ gC, const T* __restrict__ gT, const int* __restrict__ bC,
+                   const int* __restrict__ bT, const int* __restrict__ cntC,
+                   const int* __restrict__ cntT, int nbC, int nbT, T* __restrict__ xC,
+                   T* __restrict__ xT, int64_t nC, int64_t nT, const T* __restrict__ part,
+                   int sg_norm) {
+  __shared__ T buf[NT];
+  epi_apply(rawC, pC, gC, bC, cntC, nbC, xC, nC, part, sg_norm, buf);
+  epi_apply(rawT, pT, gT, bT, cntT, nbT, xT, nT, part + 2 * GRID, sg_norm, buf);
 }
 
 template <typename T>
 int epilogue_vjp_launch(const T* rawC, const T* rawT, const int64_t* pC, const int64_t* pT,
-                        const T* gC, const T* gT, T* xC, T* xT, T* part, int64_t nC,
-                        int64_t nT, cudaStream_t stream) {
+                        const T* gC, const T* gT, const int* bC, const int* bT, int* cntC,
+                        int* cntT, int nbC, int nbT, T* xC, T* xT, T* part, int64_t nC,
+                        int64_t nT, int sg_norm, cudaStream_t stream) {
   epilogue_vjp_reduce<T><<<GRID, NT, 0, stream>>>(rawC, rawT, pC, pT, gC, gT, nC, nT, part);
-  epilogue_vjp_apply<T><<<GRID, NT, 0, stream>>>(rawC, rawT, pC, pT, gC, gT, xC, xT, nC, nT,
-                                                 part);
+  if (!sg_norm)
+    epilogue_vjp_count<T><<<GRID, NT, 0, stream>>>(rawC, rawT, pC, pT, bC, bT, nC, nT, part,
+                                                   cntC, cntT);
+  epilogue_vjp_apply<T><<<GRID, NT, 0, stream>>>(rawC, rawT, pC, pT, gC, gT, bC, bT, cntC, cntT,
+                                                 nbC, nbT, xC, xT, nC, nT, part, sg_norm);
   return cudaGetLastError();
 }
 
@@ -312,22 +337,27 @@ extern "C" {
 
 int tpeps_frozen_commit_partials(void) { return 2 * GRID; }
 
-int tpeps_frozen_epilogue_vjp_partials(void) { return 6 * GRID; }
+int tpeps_frozen_epilogue_vjp_partials(void) { return 4 * GRID; }
 
 int tpeps_adjoint_commit_partials(void) { return GRID; }
 
 int tpeps_frozen_epilogue_vjp_f64(const double* rawC, const double* rawT, const int64_t* pC,
                                   const int64_t* pT, const double* gC, const double* gT,
-                                  double* xC, double* xT, double* part, int64_t nC, int64_t nT,
-                                  void* stream) {
-  return epilogue_vjp_launch<double>(rawC, rawT, pC, pT, gC, gT, xC, xT, part, nC, nT,
+                                  const int* bC, const int* bT, int* cntC, int* cntT, int nbC,
+                                  int nbT, double* xC, double* xT, double* part, int64_t nC,
+                                  int64_t nT, int sg_norm, void* stream) {
+  return epilogue_vjp_launch<double>(rawC, rawT, pC, pT, gC, gT, bC, bT, cntC, cntT, nbC, nbT,
+                                     xC, xT, part, nC, nT, sg_norm,
                                      static_cast<cudaStream_t>(stream));
 }
 
 int tpeps_frozen_epilogue_vjp_f32(const float* rawC, const float* rawT, const int64_t* pC,
-                                  const int64_t* pT, const float* gC, const float* gT, float* xC,
-                                  float* xT, float* part, int64_t nC, int64_t nT, void* stream) {
-  return epilogue_vjp_launch<float>(rawC, rawT, pC, pT, gC, gT, xC, xT, part, nC, nT,
+                                  const int64_t* pT, const float* gC, const float* gT,
+                                  const int* bC, const int* bT, int* cntC, int* cntT, int nbC,
+                                  int nbT, float* xC, float* xT, float* part, int64_t nC,
+                                  int64_t nT, int sg_norm, void* stream) {
+  return epilogue_vjp_launch<float>(rawC, rawT, pC, pT, gC, gT, bC, bT, cntC, cntT, nbC, nbT, xC,
+                                    xT, part, nC, nT, sg_norm,
                                     static_cast<cudaStream_t>(stream));
 }
 

@@ -88,41 +88,50 @@ def partner_index(struct: Struct, axes, device) -> torch.Tensor:
                         lambda: torch.from_numpy(host).to(device))
 
 
+def block_index(struct: Struct, device) -> torch.Tensor:
+    """Per element of ``struct``'s flat layout, the index of its block (int32)."""
+    return PLANS.get_or(("block_index", struct, str(device)), lambda: torch.from_numpy(
+        np.repeat(np.arange(len(struct.keys), dtype=np.int32), struct.sizes)).to(device))
+
+
 class _Epilogue(torch.autograd.Function):
     """The move's epilogue on the flat raw ``C'``, ``T'``: forward
     ``frozen_commit`` on a scratch state, backward ``frozen_epilogue_vjp``
-    (the max-abs scales differentiated)."""
+    (the max-abs scales differentiated, or detached with ``sg_norm``)."""
 
     @staticmethod
-    def forward(ctx, rawC, rawT, pC, pT):
+    def forward(ctx, rawC, rawT, pC, pT, bC, bT, nb, sg_norm):
         rawC, rawT = rawC.detach(), rawT.detach()
         st = frozen_state(torch.zeros_like(rawC), torch.zeros_like(rawT), 1, 0.0)
         frozen_commit(st, rawC, rawT, pC, pT)
-        ctx.save_for_backward(rawC, rawT, pC, pT)
+        ctx.save_for_backward(rawC, rawT, pC, pT, bC, bT)
+        ctx.nb, ctx.sg_norm = nb, sg_norm
         return st.C, st.T
 
     @staticmethod
     @once_differentiable
     def backward(ctx, gC, gT):
-        rawC, rawT, pC, pT = ctx.saved_tensors
+        rawC, rawT, pC, pT, bC, bT = ctx.saved_tensors
         gC = torch.zeros_like(rawC) if gC is None else gC.detach().contiguous()
         gT = torch.zeros_like(rawT) if gT is None else gT.detach().contiguous()
-        xC, xT = frozen_epilogue_vjp(rawC, rawT, pC, pT, gC, gT)
-        return xC, xT, None, None
+        xC, xT = frozen_epilogue_vjp(rawC, rawT, pC, pT, gC, gT, bC, bT, *ctx.nb, ctx.sg_norm)
+        return xC, xT, None, None, None, None, None, None
 
 
-def move_frozen(a, C, T, keep, ad_decomp_reg: float = 1.0e-12):
+def move_frozen(a, C, T, keep, ad_decomp_reg: float = 1.0e-12, sg_norm: bool = True):
     """One C4v move at the frozen sector profile ``keep``: the same corner
     and sublattice bookkeeping as ``ctm_move_sl``, truncation by
     ``eigh_blockwise_fixed``, symmetrized, normalized and reindexed onto the
     block sets of ``C`` and ``T`` (by ``frozen_commit`` on a scratch state).
     ``C`` and ``T`` must hold every block the move produces
-    (:func:`close_structure`).  Differentiable in ``a``, ``C`` and ``T``
-    with the max-abs scales differentiated (the JAX package's
-    ``sg_norm=False``, the implicit adjoint's move)."""
+    (:func:`close_structure`).  Differentiable in ``a``, ``C`` and ``T``;
+    ``sg_norm`` detaches the max-abs scales (the JAX package's default; the
+    implicit adjoint's move differentiates them, ``sg_norm=False``)."""
     nC, nT = _move_raw(a, C, T, dict(keep), ad_decomp_reg)
     yC, yT = _Epilogue.apply(nC.data, nT.data, partner_index(C.struct, C_PARTNER, C.device),
-                             partner_index(T.struct, T_PARTNER, T.device))
+                             partner_index(T.struct, T_PARTNER, T.device),
+                             block_index(C.struct, C.device), block_index(T.struct, T.device),
+                             (len(C.struct.keys), len(T.struct.keys)), sg_norm)
     return AbelianTensor._flat(C, C.struct, yC), AbelianTensor._flat(T, T.struct, yT)
 
 
@@ -192,7 +201,7 @@ def freeze_from_env(env: ENV_C4V_ABELIAN):
 
 
 ALIGN_REL = 1.0e-12  # entries below this times the tensor's max keep R = 1
-# the implicit adjoint's limits (the JAX package's): iterations and |u| / |ybar|
+# the implicit adjoint's default limits (the JAX package's): iterations and |u| / |ybar|
 ADJOINT_MAX_ITER, ADJOINT_TOL = 100, 1.0e-8
 
 
@@ -202,7 +211,7 @@ def sign_alignment(a, C, T, keep, ad_decomp_reg: float = 1.0e-12):
     the tensor's max (detached); ``None`` for a tensor where it is 1
     throughout."""
     with torch.no_grad():
-        mC, mT = move_frozen(a, C, T, keep, ad_decomp_reg)
+        mC, mT = move_frozen(a, C, T, keep, ad_decomp_reg, sg_norm=False)
         out = []
         for x, y in ((C.data, mC.data), (T.data, mT.data)):
             r = torch.where(x.abs() < ALIGN_REL * x.abs().max(), torch.ones_like(x),
@@ -242,9 +251,10 @@ class _ConvergeClosed(torch.autograd.Function):
         with torch.enable_grad():
             yC, yT = move_frozen(*(AbelianTensor._flat(x, x.struct, v)
                                    for x, v in zip((a, Cf, Tf), leaves)),
-                                 ctx.keep, opts["ad_decomp_reg"])
+                                 ctx.keep, opts["ad_decomp_reg"], sg_norm=False)
             ys = [y.data if r is None else y.data * r for y, r in zip((yC, yT), ctx.R)]
-        st = adjoint_state(leaves[0].detach(), gC, gT, ADJOINT_MAX_ITER, ADJOINT_TOL)
+        st = adjoint_state(leaves[0].detach(), gC, gT, opts["adjoint_max_iter"],
+                           opts["adjoint_tol"])
         u = (gC, gT)
         while not bool(st.ctl[1]):
             g = torch.autograd.grad(ys, leaves, grad_outputs=u, retain_graph=True,
@@ -265,19 +275,23 @@ class _ConvergeClosed(torch.autograd.Function):
 
 
 def converge_closed(a, C, T, keep, max_iter: int = 200, conv_tol: float = 1.0e-10,
-                    ad_decomp_reg: float = 1.0e-12, stats=None):
+                    ad_decomp_reg: float = 1.0e-12, adjoint_max_iter: int = ADJOINT_MAX_ITER,
+                    adjoint_tol: float = ADJOINT_TOL, stats=None):
     """The converged ``(C*, T*)`` from a closed warm start ``(C, T)`` (the
     output of :func:`close_structure`), differentiable in ``a`` by the
     implicit adjoint (the JAX package's ``_make_converge_frozen(...)(a, C,
     T)``): ``C`` and ``T`` take no gradient.
 
+    :param adjoint_max_iter: the adjoint's iteration limit
+    :param adjoint_tol: the adjoint stops once ``|u| <= adjoint_tol |ybar|``
     :param stats: optional dict; gets the forward's move count, distance and
         host seconds (the alignment move included), whether ``R != 1`` for C
         and T, and after a backward the adjoint's iterations, whether it
         diverged, its last ``|u|^2`` and its host seconds (graph built,
         iterations, one read of ``done`` each)
     """
-    opts = dict(max_iter=max_iter, conv_tol=conv_tol, ad_decomp_reg=ad_decomp_reg)
+    opts = dict(max_iter=max_iter, conv_tol=conv_tol, ad_decomp_reg=ad_decomp_reg,
+                adjoint_max_iter=adjoint_max_iter, adjoint_tol=adjoint_tol)
     keep = dict(keep)
     if not (torch.is_grad_enabled() and a.data.requires_grad):
         Cf, Tf, n, d2 = run_frozen(a, C, T, keep, max_iter=max_iter, conv_tol=conv_tol,
@@ -290,7 +304,8 @@ def converge_closed(a, C, T, keep, max_iter: int = 200, conv_tol: float = 1.0e-1
 
 
 def converge_frozen(a, env: ENV_C4V_ABELIAN, keep=None, max_iter: int = 200,
-                    conv_tol: float = 1.0e-10, ad_decomp_reg: float = 1.0e-12):
+                    conv_tol: float = 1.0e-10, ad_decomp_reg: float = 1.0e-12,
+                    adjoint_max_iter: int = ADJOINT_MAX_ITER, adjoint_tol: float = ADJOINT_TOL):
     """Converged environment from a warm (dynamic) env at a frozen profile:
     ``close_structure`` then :func:`converge_closed`; gradients flow into
     ``a`` through the implicit adjoint."""
@@ -298,5 +313,6 @@ def converge_frozen(a, env: ENV_C4V_ABELIAN, keep=None, max_iter: int = 200,
         keep = freeze_from_env(env)
     C, T = close_structure(a, env.C, env.T, dict(keep))
     Cf, Tf = converge_closed(a, C, T, keep, max_iter=max_iter, conv_tol=conv_tol,
-                             ad_decomp_reg=ad_decomp_reg)
+                             ad_decomp_reg=ad_decomp_reg, adjoint_max_iter=adjoint_max_iter,
+                             adjoint_tol=adjoint_tol)
     return ENV_C4V_ABELIAN(env.chi, Cf, Tf)

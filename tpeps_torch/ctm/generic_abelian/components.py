@@ -1,6 +1,5 @@
-"""Enlarged 2x2 corners for the abelian CTM (counterpart of
-tpeps/ctm/generic_abelian/components.py; the ``halves_*`` of the generic
-abelian move are not ported yet).
+"""Enlarged 2x2 corners and the half-systems of the abelian CTM
+(counterpart of tpeps/ctm/generic_abelian/components.py).
 
 Corners are rank-6 AbelianTensors grouped as (row-triple | col-triple),
 each triple = (chi, Dket, Dbra); ``open_phys=True`` appends (s, z) =
@@ -91,3 +90,59 @@ def corner_ld(coord, state, env, open_phys=False):
     c = state.vertexToSite(coord)
     return c2x2_ld(env.C[(c, (-1, 1))], env.T[(c, (-1, 0))], env.T[(c, (0, 1))],
                    state.sites[c], open_phys)
+
+
+def halves_up(coord, state, env):
+    """R, Rt for the UP move; ``coord`` is the upper-right site."""
+    x, y = coord
+    ru = corner_ru(coord, state, env)
+    rd = corner_rd((x, y + 1), state, env)
+    lu = corner_lu((x - 1, y), state, env)
+    ld = corner_ld((x - 1, y + 1), state, env)
+    R = ru.tensordot(rd, ((3, 4, 5), (0, 1, 2)))      # (ru-rows, rd-cols)
+    Rt = lu.tensordot(ld, ((0, 1, 2), (0, 1, 2)))     # (lu-cols, ld-cols)
+    return R, Rt
+
+
+def halves_left(coord, state, env):
+    """R, Rt for the LEFT move; ``coord`` is the upper-left site."""
+    x, y = coord
+    lu = corner_lu(coord, state, env)
+    ru = corner_ru((x + 1, y), state, env)
+    ld = corner_ld((x, y + 1), state, env)
+    rd = corner_rd((x + 1, y + 1), state, env)
+    R = lu.tensordot(ru, ((3, 4, 5), (0, 1, 2)))      # (lu-rows, ru-cols)
+    Rt = ld.tensordot(rd, ((3, 4, 5), (3, 4, 5)))     # (ld-rows, rd-rows)
+    return R, Rt
+
+
+def halves_down(coord, state, env):
+    """R, Rt for the DOWN move; ``coord`` is the lower-left site."""
+    x, y = coord
+    ld = corner_ld(coord, state, env)
+    lu = corner_lu((x, y - 1), state, env)
+    rd = corner_rd((x + 1, y), state, env)
+    ru = corner_ru((x + 1, y - 1), state, env)
+    R = ld.tensordot(lu, ((0, 1, 2), (0, 1, 2)))      # (ld-cols, lu-cols)
+    Rt = rd.tensordot(ru, ((0, 1, 2), (3, 4, 5)))     # (rd-cols, ru-rows)
+    return R, Rt
+
+
+def halves_right(coord, state, env):
+    """R, Rt for the RIGHT move; ``coord`` is the lower-right site."""
+    x, y = coord
+    rd = corner_rd(coord, state, env)
+    ld = corner_ld((x - 1, y), state, env)
+    ru = corner_ru((x, y - 1), state, env)
+    lu = corner_lu((x - 1, y - 1), state, env)
+    R = rd.tensordot(ld, ((3, 4, 5), (3, 4, 5)))      # (rd-rows, ld-rows)
+    Rt = ru.tensordot(lu, ((0, 1, 2), (3, 4, 5)))     # (ru-cols, lu-rows)
+    return R, Rt
+
+
+HALVES = {
+    (0, -1): halves_up,
+    (-1, 0): halves_left,
+    (0, 1): halves_down,
+    (1, 0): halves_right,
+}

@@ -8,7 +8,9 @@ environment ``(C, T)`` in public layout (``C[chi,chi]``, ``T[chi,chi,D^2]``)
 become tensors on a given device (the card unless the caller says
 otherwise) and dtype, and back.  A configuration goes in as the nested
 dict of ``dataclasses.asdict``; a state goes across as its JSON file, which
-both packages read and write bit for bit.
+both packages read and write bit for bit.  Abelian tensors, C4v and generic
+environments and multi-site abelian states go across as block specs
+(numpy block dicts with their charge metadata, :func:`abelian_to_torch`).
 """
 
 from __future__ import annotations
@@ -94,3 +96,33 @@ def env_c4v_abelian_to_torch(chi, C, T, *, device="cuda"):
 def env_c4v_abelian_to_numpy(env):
     """``(chi, C spec, T spec)`` of an ``ENV_C4V_ABELIAN``."""
     return env.chi, abelian_to_numpy(env.C), abelian_to_numpy(env.T)
+
+
+def env_abelian_to_torch(chi, C, T, *, device="cuda"):
+    """A generic ``ENV_ABELIAN`` from ``{key: spec}`` dicts of its corners and
+    edges (see :func:`abelian_to_torch`)."""
+    from ..ctm.generic_abelian.env import ENV_ABELIAN
+
+    return ENV_ABELIAN(chi, {k: abelian_to_torch(s, device=device) for k, s in C.items()},
+                       {k: abelian_to_torch(s, device=device) for k, s in T.items()})
+
+
+def env_abelian_to_numpy(env):
+    """``(chi, {key: C spec}, {key: T spec})`` of a generic ``ENV_ABELIAN``."""
+    return (env.chi, {k: abelian_to_numpy(t) for k, t in env.C.items()},
+            {k: abelian_to_numpy(t) for k, t in env.T.items()})
+
+
+def ipeps_abelian_to_torch(sym, sites, vertexToSite=None, lX=None, lY=None, *, device="cuda"):
+    """An ``IPEPS_ABELIAN`` from ``{coord: spec}`` (see :func:`abelian_to_torch`)
+    and the cell's geometry."""
+    from ..ipeps.ipeps_abelian import IPEPS_ABELIAN
+
+    return IPEPS_ABELIAN(sym, {c: abelian_to_torch(s, device=device) for c, s in sites.items()},
+                         vertexToSite=vertexToSite, lX=lX, lY=lY)
+
+
+def ipeps_abelian_to_numpy(state):
+    """``(sym, {coord: spec}, vertexToSite, lX, lY)`` of an ``IPEPS_ABELIAN``."""
+    return (state.sym, {c: abelian_to_numpy(t) for c, t in state.sites.items()},
+            state.vertexToSite, state.lX, state.lY)

@@ -16,7 +16,8 @@ block structure (numpy on the host) and that are uploaded once per device:
   ``block_gemm`` writes each output block once, ``sum_p sign_p A_p @ B_p``;
   its twin is the JAX package's batched design: the pairs grouped by
   ``(m, k, n)``, one ``torch.bmm`` per group, the signs, and ``index_add_``
-  into the output blocks.  A table may read either operand transposed
+  into the output blocks (one gather of each operand's blocks and one
+  ``index_add_`` of all products, in group order).  A table may read either operand transposed
   (``trans_a``, ``trans_b``); :meth:`GemmTable.grad_tables` derives from a
   table the two tables of its backward, ``dA = sum_p s_p G_o B_p^T`` grouped
   by A block and ``dB = sum_p s_p A_p^T G_o`` grouped by B block.
@@ -217,9 +218,11 @@ class GemmTable(_DeviceCache):
         return flops, elems
 
     def groups(self, device) -> tuple:
-        """The pairs grouped by ``(m, k, n)`` as index tensors (cached per
-        device): per group ``(A index (G, m k), B index (G, k n), output index
-        (G m n,), signs (G,), m, k, n)``, and every output element's index."""
+        """The pairs grouped by ``(m, k, n)`` (cached per device): the A and B
+        indices of every group's operand blocks, concatenated group after
+        group; per group ``(A start, A length, B start, B length, signs (G,)
+        or None where all are +1, m, k, n)``; the output index of every
+        product element in the same order; every output element's index."""
         cache = self.__dict__.setdefault("_groups", {})
         key = str(device)
         if key not in cache:
@@ -232,18 +235,23 @@ class GemmTable(_DeviceCache):
             uniq, inv = (np.unique(shapes, axis=0, return_inverse=True) if len(k)
                          else (shapes, np.zeros(0, np.int64)))
             inv = inv.reshape(-1)
-            groups = []
+            groups, ia, ib, ic, a0, b0 = [], [], [], [], 0, 0
             for gi, (mm, kk, nn) in enumerate(uniq.tolist()):
                 idx = np.nonzero(inv == gi)[0]
-                groups.append((t(self.pr_a[idx][:, None] + np.arange(mm * kk)[None, :]),
-                               t(self.pr_b[idx][:, None] + np.arange(kk * nn)[None, :]),
-                               t((self.ob_off[o_of_p[idx]][:, None]
-                                  + np.arange(mm * nn)[None, :]).reshape(-1)),
-                               t(self.pr_s[idx].astype(np.float64)), mm, kk, nn))
+                ia.append((self.pr_a[idx][:, None] + np.arange(mm * kk)[None, :]).reshape(-1))
+                ib.append((self.pr_b[idx][:, None] + np.arange(kk * nn)[None, :]).reshape(-1))
+                ic.append((self.ob_off[o_of_p[idx]][:, None]
+                           + np.arange(mm * nn)[None, :]).reshape(-1))
+                sg = self.pr_s[idx]
+                groups.append((a0, ia[-1].size, b0, ib[-1].size,
+                               None if (sg > 0).all() else t(sg.astype(np.float64)), mm, kk, nn))
+                a0 += ia[-1].size
+                b0 += ib[-1].size
+            cat = lambda xs: np.concatenate(xs) if xs else np.zeros(0, np.int64)
             mn = self.ob_m.astype(np.int64) * self.ob_n
             outs = np.repeat(self.ob_off, mn) + np.arange(int(mn.sum())) \
                 - np.repeat(np.cumsum(mn) - mn, mn)
-            cache[key] = (groups, t(outs))
+            cache[key] = (t(cat(ia)), t(cat(ib)), t(cat(ic)), groups, t(outs))
         return cache[key]
 
 
@@ -260,13 +268,20 @@ def gemm_tiles(m: np.ndarray, n: np.ndarray) -> np.ndarray:
 
 
 def block_gemm_twin(a, b, out, table: GemmTable):
-    groups, outs = table.groups(out.device)
+    ia, ib, ic, groups, outs = table.groups(out.device)
     out[outs] = 0
-    for ia, ib, ic, sg, m, k, n in groups:
-        A = a[ia].view(-1, k, m).transpose(1, 2) if table.trans_a else a[ia].view(-1, m, k)
-        B = b[ib].view(-1, n, k).transpose(1, 2) if table.trans_b else b[ib].view(-1, k, n)
+    if not groups:
+        return out
+    a_all, b_all, prods = a[ia], b[ib], []
+    for a0, na, b0, nb, sg, m, k, n in groups:
+        A, B = a_all[a0:a0 + na], b_all[b0:b0 + nb]
+        A = A.view(-1, k, m).transpose(1, 2) if table.trans_a else A.view(-1, m, k)
+        B = B.view(-1, n, k).transpose(1, 2) if table.trans_b else B.view(-1, k, n)
         prod = torch.bmm(A, B)
-        out.index_add_(0, ic, (prod * sg.to(prod.dtype).view(-1, 1, 1)).reshape(-1))
+        if sg is not None:
+            prod = prod * sg.to(prod.dtype).view(-1, 1, 1)
+        prods.append(prod.reshape(-1))
+    out.index_add_(0, ic, torch.cat(prods))
     return out
 
 

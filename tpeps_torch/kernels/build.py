@@ -23,7 +23,8 @@ PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 SOURCES = ("layer_contract.cu", "corner_apply.cu", "cholqr.cu", "t_epilogue.cu", "polar.cu",
-           "eigh_small.cu", "ozaki.cu", "ctm_commit.cu", "block_sparse.cu", "frozen_commit.cu")
+           "eigh_small.cu", "ozaki.cu", "ctm_commit.cu", "block_sparse.cu", "frozen_commit.cu",
+           "frozen_generic.cu")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -62,12 +63,19 @@ _SIGNATURES = {
     "tpeps_frozen_commit_f64": (_vp,) * 11 + (_i64, _i64, _vp),
     "tpeps_frozen_commit_f32": (_vp,) * 11 + (_i64, _i64, _vp),
     "tpeps_frozen_commit_partials": (),
-    "tpeps_frozen_epilogue_vjp_f64": (_vp,) * 9 + (_i64, _i64, _vp),
-    "tpeps_frozen_epilogue_vjp_f32": (_vp,) * 9 + (_i64, _i64, _vp),
+    "tpeps_frozen_epilogue_vjp_f64": (_vp,) * 10 + (_i, _i, _vp, _vp, _vp, _i64, _i64, _i, _vp),
+    "tpeps_frozen_epilogue_vjp_f32": (_vp,) * 10 + (_i, _i, _vp, _vp, _vp, _i64, _i64, _i, _vp),
     "tpeps_frozen_epilogue_vjp_partials": (),
     "tpeps_adjoint_commit_f64": (_vp, _vp, _i64, _vp, _i64, _vp, _i64, _vp, _vp, _vp, _vp),
     "tpeps_adjoint_commit_f32": (_vp, _vp, _i64, _vp, _i64, _vp, _i64, _vp, _vp, _vp, _vp),
     "tpeps_adjoint_commit_partials": (),
+    "tpeps_generic_epilogue_f64": (_vp, _vp, _i, _vp, _vp, _vp),
+    "tpeps_generic_epilogue_f32": (_vp, _vp, _i, _vp, _vp, _vp),
+    "tpeps_generic_epilogue_partials": (),
+    "tpeps_sweep_commit_f64": (_vp, _vp, _i64, _vp, _vp, _vp, _vp, _vp),
+    "tpeps_sweep_commit_f32": (_vp, _vp, _i64, _vp, _vp, _vp, _vp, _vp),
+    "tpeps_generic_epilogue_vjp_f64": (_vp, _vp, _vp, _i, _vp, _vp, _vp, _i, _vp, _vp),
+    "tpeps_generic_epilogue_vjp_f32": (_vp, _vp, _vp, _i, _vp, _vp, _vp, _i, _vp, _vp),
 }
 
 

@@ -2,8 +2,8 @@
 C4v abelian move and one step of ``run_frozen``'s ``while_loop``
 (tpeps/ctm/c4v_abelian/frozen.py:73-77, 141-149), on the card; and the two
 kernels of ``converge_frozen``'s implicit adjoint (:160-233):
-``frozen_epilogue_vjp`` (the epilogue's backward with the scale
-differentiated) and ``adjoint_commit`` (one step of the Neumann adjoint's
+``frozen_epilogue_vjp`` (the epilogue's backward, the scale differentiated
+or detached) and ``adjoint_commit`` (one step of the Neumann adjoint's
 ``while_loop``, state in an :class:`AdjointState`).
 
 The loop state is a :class:`FrozenState` of tensors on one device: the
@@ -99,47 +99,75 @@ def frozen_commit(state: FrozenState, rawC, rawT, pC, pT) -> None:
     LAUNCHES["frozen_commit"] += 1
 
 
-def frozen_epilogue_vjp_twin(rawC, rawT, pC, pT, gC, gT):
+def tie_weights(z, m, blk, nblk: int):
+    """The JAX package's split of ``d max|z| / dz`` (a max per block, then a
+    max over the blocks, each splitting evenly among ties): per element
+    ``1 / (n_tied_blocks * n_tied_in_its_block)`` where ``|z| = m``, else 0.
+    ``blk``: per element its block's index (int32) among ``nblk``."""
+    tie = z.abs() == m
+    cnt = torch.zeros(nblk, dtype=z.dtype, device=z.device).index_add_(
+        0, blk[tie].long(), torch.ones_like(z[tie]))
+    ntb = (cnt > 0).sum().to(z.dtype)
+    return torch.where(tie, 1.0 / (ntb * cnt[blk.long()]), torch.zeros_like(z))
+
+
+def scale_vjp_twin(z, g, blk, nblk: int, sg_norm: bool):
+    """Cotangent of ``z`` for the cotangent ``g`` of ``y = z * (1 / max|z|)``:
+    ``g/m``, minus ``(sum g.z / m^2) w sign(z)`` with the scale differentiated
+    (``w`` from :func:`tie_weights`)."""
+    m = z.abs().max()
+    inv = 1.0 / m
+    zb = g * inv
+    if sg_norm:
+        return zb
+    coef = (g * z).sum() * inv * inv
+    return zb - (coef * tie_weights(z, m, blk, nblk)) * torch.sign(z)
+
+
+def frozen_epilogue_vjp_twin(rawC, rawT, pC, pT, gC, gT, bC, bT, nbC, nbT, sg_norm=False):
     out = []
-    for raw, p, g in ((rawC, pC, gC), (rawT, pT, gT)):
-        z = _symmetrized(raw, p)
-        m = z.abs().max()
-        tie = z.abs() == m
-        inv = 1.0 / m
-        coef = (g * z).sum() * inv * inv / tie.sum()
-        zb = g * inv - torch.where(tie, torch.where(z > 0, coef, -coef), torch.zeros_like(z))
+    for raw, p, g, b, nb in ((rawC, pC, gC, bC, nbC), (rawT, pT, gT, bT, nbT)):
+        zb = scale_vjp_twin(_symmetrized(raw, p), g, b, nb, sg_norm)
         out.append(0.5 * (zb + torch.where(p >= 0, zb[p.clamp(min=0)], torch.zeros_like(zb))))
     return tuple(out)
 
 
-def frozen_epilogue_vjp(rawC, rawT, pC, pT, gC, gT):
+def frozen_epilogue_vjp(rawC, rawT, pC, pT, gC, gT, bC, bT, nbC: int, nbT: int,
+                        sg_norm: bool = False):
     """Cotangents of the raw ``C'``, ``T'`` for the cotangents ``gC``, ``gT``
     of the epilogue ``y = z * (1 / max|z|)``, ``z`` the symmetrization of the
     raw move with its transpose partners (``pC``, ``pT`` as for
     :func:`frozen_commit`): ``zbar = g/m - (sum g.z / m^2) w sign(z)``, ``w``
-    splitting 1 evenly over the elements with ``|z| = m``, then
+    the JAX package's split over the ties (:func:`tie_weights`; ``bC``,
+    ``bT`` the elements' block indices (int32) among ``nbC``, ``nbT`` blocks),
+    the second term dropped when ``sg_norm`` (the scale detached), then
     ``xbar = sym(zbar)``.  Real dtypes only.  Returns ``(xC, xT)``."""
     for name, t, ref in (("rawT", rawT, rawT), ("pC", pC, rawC), ("pT", pT, rawT),
-                         ("gC", gC, rawC), ("gT", gT, rawT)):
+                         ("gC", gC, rawC), ("gT", gT, rawT), ("bC", bC, rawC), ("bT", bT, rawT)):
         if t.shape != ref.shape:
             raise ValueError(f"frozen_epilogue_vjp: {name} shape {tuple(t.shape)}")
     if rawC.is_complex() or rawT.is_complex():
         raise TypeError("frozen_epilogue_vjp takes real tensors")
     if not route("frozen_epilogue_vjp", rawC, rawT, gC, gT):
-        return frozen_epilogue_vjp_twin(rawC, rawT, pC, pT, gC, gT)
-    for name, t in (("pC", pC), ("pT", pT)):
-        if t.device != rawC.device or t.dtype != torch.int64:
-            raise ValueError(f"frozen_epilogue_vjp: {name} must be int64 on {rawC.device}")
-    require_contiguous("frozen_epilogue_vjp", rawC=rawC, rawT=rawT, pC=pC, pT=pT, gC=gC, gT=gT)
+        return frozen_epilogue_vjp_twin(rawC, rawT, pC, pT, gC, gT, bC, bT, nbC, nbT, sg_norm)
+    for name, t, dtype in (("pC", pC, torch.int64), ("pT", pT, torch.int64),
+                           ("bC", bC, torch.int32), ("bT", bT, torch.int32)):
+        if t.device != rawC.device or t.dtype != dtype:
+            raise ValueError(f"frozen_epilogue_vjp: {name} must be {dtype} on {rawC.device}")
+    require_contiguous("frozen_epilogue_vjp", rawC=rawC, rawT=rawT, pC=pC, pT=pT, gC=gC, gT=gT,
+                       bC=bC, bT=bT)
     lib = library()
     xC, xT = torch.empty_like(rawC), torch.empty_like(rawT)
     part = torch.empty(lib.cdll.tpeps_frozen_epilogue_vjp_partials(), dtype=rawC.dtype,
                        device=rawC.device)
+    cntC = torch.zeros(max(nbC, 1), dtype=torch.int32, device=rawC.device)
+    cntT = torch.zeros(max(nbT, 1), dtype=torch.int32, device=rawC.device)
     with torch.cuda.device(rawC.device):
         err = getattr(lib.cdll, f"tpeps_frozen_epilogue_vjp_{suffix(rawC)}")(
             rawC.data_ptr(), rawT.data_ptr(), pC.data_ptr(), pT.data_ptr(), gC.data_ptr(),
-            gT.data_ptr(), xC.data_ptr(), xT.data_ptr(), part.data_ptr(), rawC.numel(),
-            rawT.numel(), stream_of(rawC))
+            gT.data_ptr(), bC.data_ptr(), bT.data_ptr(), cntC.data_ptr(), cntT.data_ptr(), nbC,
+            nbT, xC.data_ptr(), xT.data_ptr(), part.data_ptr(), rawC.numel(), rawT.numel(),
+            int(bool(sg_norm)), stream_of(rawC))
     lib.check(err, "frozen_epilogue_vjp")
     LAUNCHES["frozen_epilogue_vjp"] += 1
     return xC, xT

@@ -25,6 +25,7 @@ import torch
 from torch.autograd.function import once_differentiable
 
 SVD_DRIVER = "gesvd"
+PIVOT_TIE_REL = 1.0e-10  # fix_svd_signs: magnitudes this close to a column's largest tie
 
 
 def _svd(A):
@@ -108,8 +109,16 @@ def svd_reg(A, eps: float = 1.0e-12):
 def fix_svd_signs(U, Vh):
     """Gauge-fix SVD factor pairs: the largest-|entry| element of each ``U``
     column made real positive; the compensating phase goes into ``Vh`` so
-    ``U S Vh`` is unchanged."""
-    idx = torch.argmax(U.detach().abs(), dim=0)
+    ``U S Vh`` is unchanged.  Entries within ``PIVOT_TIE_REL`` of a column's largest
+    magnitude count as tied and the first of them is the pivot (the JAX
+    package's ``argmax`` picks the first of exact ties): the ket/bra symmetry
+    of a double layer ties entries exactly, and rounding must not pick the
+    pivot, or the sign can change from one CTMRG move to the next and from
+    one device to another."""
+    Ua = U.detach().abs()
+    tied = Ua >= Ua.amax(dim=0, keepdim=True) * (1.0 - PIVOT_TIE_REL)
+    first = torch.arange(U.shape[0], 0, -1, device=U.device)[:, None]  # unique maximum: the first
+    idx = torch.argmax(tied.to(first.dtype) * first, dim=0)
     pivots = U[idx, torch.arange(U.shape[1], device=U.device)]
     if U.is_complex():
         phase = pivots / torch.clamp(pivots.abs(), min=1e-300)

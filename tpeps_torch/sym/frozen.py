@@ -86,7 +86,12 @@ def svd_blockwise_fixed(t: AbelianTensor, row_axes, col_axes, keep: dict,
     _check_keep(keep, sector_mats, "projector matrix")
     ucols, vrows, S_out = {}, {}, {}
     for qsec in sorted(keep):
-        U, S, Vh = svd_reg(sector_mats[qsec][6], ad_decomp_reg)
+        M, k = sector_mats[qsec][6], keep[qsec]
+        if M.is_meta:  # a structure-only run: shapes, no decomposition
+            ucols[qsec], S_out[qsec] = M.new_empty((M.shape[0], k)), M.new_empty((k,))
+            vrows[qsec] = M.new_empty((k, M.shape[1]))
+            continue
+        U, S, Vh = svd_reg(M, ad_decomp_reg)
         U, Vh = fix_svd_signs(U, Vh)
         k = keep[qsec]
         S_out[qsec] = S[:k]

@@ -293,7 +293,7 @@ class _LRU(OrderedDict):
         return val
 
 
-PLANS = _LRU(1024)
+PLANS = _LRU(4096)  # a D=8 chi=160 generic sweep builds ~850 plans
 
 
 def plan_cache_stats() -> dict:
