@@ -3,7 +3,9 @@
 
 Usage: ``python3 chip_smoke.py`` from the repository root, on a machine
 with one CUDA card and ``nvcc`` (CUDA_HOME, PATH or the toolkit's default
-prefix).  It needs no network and no JAX.
+prefix).  It needs no network and no JAX.  ``python3 chip_smoke.py --ablate``
+runs phases 0 and 1 and then only :func:`ablate`, the timing breakdown of
+the K3 Gram and K7 ``ozaki_gemm`` kernels.
 
 Phases (any failed check exits non-zero; there is no CPU fallback):
 
@@ -20,7 +22,12 @@ Phases (any failed check exits non-zero; there is no CPU fallback):
    library times from CUDA events, and each kernel's bound: the bytes its
    function must move at 3.35 TB/s or its FP64 operations at 67 TFLOP/s on
    the tensor cores (34 TFLOP/s off them, elementwise work), counting only
-   what a symmetric result needs.
+   what a symmetric result needs.  K3's ``gram_ridge`` and ``gram`` also at
+   k = chi and chi + 8 in both dtypes, ``gram_ridge`` on an orthonormal
+   basis and on M2 P (not orthonormal) with the path's ridge and a large
+   one: against the twins, two calls bit-identical, timed against
+   ``torch.matmul`` at the same precision, both in CUDA graphs (device
+   time; an eager call to a ~30 us kernel is mostly host launch cost).
 3. the forward slice: the D=7, chi=147 float64 state of the benchmark case
    (RandomState(0), C4v-symmetrized), init_env("CTMRG"), run_ctmrg
    (max_iter=48, conv_tol=1e-8, n_power=2), energy_1x1_lowmem (j2=0.3)
@@ -47,7 +54,8 @@ Phases (any failed check exits non-zero; there is no CPU fallback):
    counts, corner spectra <= 1e-12 apart, ms/move of both and of the graph's
    replays alone; (b) ``run_ctmrg(moves_per_sync=4)`` against the same; (c)
    one float64 move with ``dot_impl="ozaki"`` against the FP64 move from the
-   same start (spectrum <= 1e-11, C and T <= 1e-10); (d) ``MoveGraph``
+   same start (spectrum <= 1e-11, C and T <= 1e-10), and its ``ozaki_gemm``
+   launches by shape; (d) ``MoveGraph``
    refuses chi=170, past the move's kernels on the card; (e)
    ``run_ctmrg_mixed`` with the JAX package's ``bench_case`` arguments
    (max_iter 48, conv_tol 1e-8, moves_per_sync 4, physical-index slicing
@@ -130,7 +138,12 @@ a dense random matrix of its largest k, 169 (eigenvalues <= 1e-12
 relative, residual and orthogonality <= 1e-12), ``ozaki_split`` on
 the corner M2 (7203 x 7203), a basis P (7203 x 147) and a layer's operands
 (98 x 49, 49 x 1.06M) (digit planes and exponents bit-identical),
-``ozaki_gemm`` of M2 P and of the layer (<= 1e-15 relative), ``ctm_commit``
+``ozaki_gemm`` bit-identical to its twin (``torch.equal``) at every product
+shape of the Ozaki move (M2 P; C T, 147 x 147 by 147 x 7203; T (C T) and T P,
+7203 x 147 by 147 x 7203; the sliced layer, 49 x 49 by 49 x 1.06M; P^T Z, 147
+x 7203 by 7203 x 7203) and at the unsliced ket and bra layers (98 x 49 by
+49 x 1.06M, 49 x 98 by 98 x 1.06M), each timed against FP64
+``torch.matmul`` with its own bound, ``ctm_commit``
 in both convergence modes (state identical, dist <= 1e-12 relative), a loop
 that ended, and one that reaches max_iter.
 
@@ -144,6 +157,7 @@ import contextlib
 import itertools
 import json
 import math
+import re
 import subprocess
 import sys
 import tempfile
@@ -205,7 +219,7 @@ FORWARD = ("layer_contract", "corner_apply", "gram_ridge", "gram", "trsm_right_l
            "t_epilogue", "polar_unitary", "eigh_small")
 # the large-D slice (phase 7): the on-card loop and the Ozaki polish
 LARGE_D = ("ozaki_split", "ozaki_gemm", "ctm_commit")
-OZ_TOL, OZ_MOVE_SPEC_TOL, OZ_MOVE_ENV_TOL = 1e-15, 1e-11, 1e-10
+OZ_MOVE_SPEC_TOL, OZ_MOVE_ENV_TOL = 1e-11, 1e-10
 GRAPH_SPEC_TOL, MOVES_PER_SYNC = 1e-12, 4
 EIGH_BIG = 169  # eigh_small's largest k, the factored move's largest chi on the card
 # the mixed driver against the float64 driver for as many moves from the same
@@ -280,6 +294,29 @@ def cuda_ms(fn, reps: int = 5) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps: int = 20, replays: int = 5) -> float:
+    """Mean device milliseconds per call, from a CUDA graph of ``reps``
+    calls replayed ``replays`` times, after one eager warm-up: no host
+    launch cost, which is most of an eager call to a ~30 us kernel."""
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        g.replay()
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / (reps * replays)
+    del g
+    return ms
 
 
 def rel_err(x, ref) -> float:
@@ -360,9 +397,23 @@ def phase1() -> None:
 
     lib = build()
     print(f"  built {lib.path.name} in {lib.build_seconds:.1f} s")
-    for line in lib.build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            print("  ptxas:", line.strip())
+    for name, line in ptxas_lines(lib.build_log):
+        print(f"  ptxas: {name}: {line}")
+
+
+def ptxas_lines(log: str):
+    """(kernel, line) for each ptxas register or spill line of an nvcc log."""
+    name = ""
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\S+)'", line)
+        if entry:  # the kernel's name: after the file's 8-digit hash, a length, the identifier
+            name = entry.group(1)
+            m = re.search(r"_cu_[0-9a-f]{8}(\d+)", name)
+            if m:
+                n = int(m.group(1))
+                name = name[m.end():m.end() + n + 12]  # and the start of its template arguments
+        elif "registers" in line or "spill" in line:
+            yield name, line.strip()
 
 
 def near_unitary_overlap(a, C, T_int, n_moves: int = 3):
@@ -416,7 +467,7 @@ def phase2(dev) -> dict:
     from tpeps_torch.ctm.c4v.env import init_env
     from tpeps_torch.kernels import cholqr, corner, epilogue, layer, polar
 
-    rec = {}
+    rec, gram_shapes = {}, {}
     for dtype in (torch.float64, torch.float32):
         tol, tag = TOL[dtype], str(dtype).replace("torch.", "")
         a = bench_state(D, dev, dtype)
@@ -452,6 +503,40 @@ def phase2(dev) -> dict:
             check(e <= tol, f"K3 trsm_right_lower {tag}: rel err {e:.2e} <= {tol:.0e}")
             e = rel_err(cholqr.gram(Pm, P), cholqr.gram_twin(Pm, P))
             check(e <= tol, f"K3 gram (two operands) {tag}: rel err {e:.2e} <= {tol:.0e}")
+            # both Grams at the move's two widths (chi, and chi + 8 in
+            # subspace_eigh): against the twins, two calls bit-identical,
+            # timed against torch.matmul at the same precision.  gram_ridge
+            # on an orthonormal basis and on M2 P, which is not (as
+            # cholesky_qr2's first pass sees it: every tile of G, the
+            # mirrored ones too, of the size of the largest), with the
+            # path's ridge and with one large enough to show
+            for k in (CHI, CHI + 8):
+                Pk = torch.linalg.qr(torch.randn(CHI * D * D, k, generator=gen, device=dev,
+                                                 dtype=torch.float64)).Q.to(dtype).contiguous()
+                Qk = (M2 @ Pk).contiguous()
+                for name, kern, twin in (
+                        ("gram_ridge orthonormal", lambda: cholqr.gram_ridge(Pk, 1e-12),
+                         lambda: cholqr.gram_ridge_twin(Pk, 1e-12)),
+                        ("gram_ridge eps=0.25", lambda: cholqr.gram_ridge(Qk, 0.25),
+                         lambda: cholqr.gram_ridge_twin(Qk, 0.25)),
+                        ("gram_ridge", lambda: cholqr.gram_ridge(Qk, 1e-12),
+                         lambda: cholqr.gram_ridge_twin(Qk, 1e-12)),
+                        ("gram", lambda: cholqr.gram(Qk, Pk), lambda: cholqr.gram_twin(Qk, Pk))):
+                    G1, G2 = kern(), kern()
+                    e = rel_err(G1, twin())
+                    check(e <= tol and torch.equal(G1, G2),
+                          f"K3 {name} {tag} k={k}: rel err {e:.2e} <= {tol:.0e}, two calls "
+                          "bit-identical")
+                    if " " in name:
+                        continue
+                    mm = lambda: torch.matmul(Qk.mT, Pk)  # the same shapes as either Gram
+                    ms, lib_ms = graph_ms(kern), graph_ms(mm)
+                    lib_ms, ms = min(lib_ms, graph_ms(mm)), min(ms, graph_ms(kern))
+                    print(f"  {name} {tag} {CHI * D * D} x {k} (in CUDA graphs): kernel "
+                          f"{ms:.4f} ms, torch.matmul {lib_ms:.4f} ms")
+                    gram_shapes.setdefault(name, {})[f"{tag} k={k}"] = {
+                        "ms": ms, "matmul_ms": lib_ms}
+                del Pk, Qk
             # K6's overlaps come from the float64 path, rounded for float32
             if dtype == torch.float64:
                 overlaps = (near_unitary_overlap(a, env.C, T_int),
@@ -569,7 +654,9 @@ def phase2(dev) -> dict:
                 time_case(rec, name, *case)
             rec["polar_unitary"]["ms_jacobi_branch"] = jac_ms
             print(f"  polar_unitary, Jacobi branch (move 4's overlap): kernel {jac_ms:.3f} ms")
-            del M2, M2b, q, q1
+            del M2b, q, q1
+    for name, shapes in gram_shapes.items():
+        rec[name]["shapes"] = shapes
     return rec
 
 
@@ -821,6 +908,31 @@ def eigh_errors(H, w, V, wt):
     return e_w, e_r, e_o
 
 
+def oz_shape(A, B, s: int = 8) -> dict:
+    """``ozaki_gemm`` of ``A @ B`` (split by the kernels): bit-identical to the
+    twin, kernel and FP64 ``torch.matmul`` times (kernel, library, library,
+    kernel), the int8 bound and the FP64 product's; returns the record."""
+    from tpeps_torch.kernels import ozaki
+
+    A, B = A.contiguous(), B.contiguous()
+    (m, k), n = A.shape, B.shape[1]
+    Ap, ea = ozaki.ozaki_split(A, s, 7, 1)
+    Bp, eb = ozaki.ozaki_split(B, s, 7, 0)
+    Y = ozaki.ozaki_gemm(Ap, ea, Bp, eb)
+    check(torch.equal(Y, ozaki.ozaki_gemm_twin(Ap, ea, Bp, eb, 7)),
+          f"ozaki_gemm {m} x {k} by {k} x {n}: bit-identical to the twin")
+    kern, lib = (lambda: ozaki.ozaki_gemm(Ap, ea, Bp, eb)), (lambda: torch.matmul(A, B))
+    ms, lib_ms = cuda_ms(kern), cuda_ms(lib)
+    lib_ms, ms = min(lib_ms, cuda_ms(lib)), min(ms, cuda_ms(kern))
+    bound_ms, bound_by = bound(nbytes(Ap, Bp, ea, eb, Y), s * (s + 1) // 2 * 2 * m * n * k, INT8_TC)
+    fp64_ms, fp64_by = bound(nbytes(A, B, Y), 2 * m * n * k, FP64_TC)
+    print(f"  ozaki_gemm {m} x {k} by {k} x {n}: kernel {ms:.3f} ms, FP64 torch.matmul "
+          f"{lib_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}; the FP64 product's "
+          f"{fp64_ms:.4f} ms, {fp64_by})")
+    return {"shape": [m, k, n], "kp": Ap.shape[2], "slices": s, "ms": ms, "fp64_matmul_ms": lib_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "fp64_bound_ms": fp64_ms}
+
+
 def phase2_large_d(dev) -> dict:
     """The large-D slice's kernels against their twins at D=7, chi=147 f64."""
     print(f"== phase 2 (large-D slice): eigh_small, ozaki_split, ozaki_gemm, ctm_commit at "
@@ -883,56 +995,56 @@ def phase2_large_d(dev) -> dict:
                   f"{tuple(Xp.shape)} and exponents bit-identical to the twin")
             split[label] = (Xp, ex)
         (Ap, ea), (Bp, eb) = split["M2"], split["P"]
-        Y = ozaki.ozaki_gemm(Ap, ea, Bp, eb)
-        Yt = ozaki.ozaki_gemm_twin(Ap, ea, Bp, eb, 7)
-        e = rel_err(Y, Yt)
-        e64 = rel_err(Y, M2 @ P)
-        check(e <= OZ_TOL, f"ozaki_gemm M2 P (s={s}): rel err {e:.2e} <= {OZ_TOL:.0e} vs the "
-                           f"twin; {e64:.2e} vs the FP64 product")
         time_case(rec, "ozaki_split", lambda: ozaki.ozaki_split(M2, s, 7, 1),
                   lambda: ozaki.ozaki_split_twin(M2, s, 7, 1), None,
                   nbytes(M2) + s * Ap.shape[1] * Ap.shape[2] + 8 * n, 0, FP64_CC)
         print("  ozaki_split bound: read M2 once, write its 8 digit planes")
-        ops = s * (s + 1) // 2 * 2 * n * n * k
+        Y = ozaki.ozaki_gemm(Ap, ea, Bp, eb)
+        check(torch.equal(Y, ozaki.ozaki_gemm_twin(Ap, ea, Bp, eb, 7)),
+              f"ozaki_gemm M2 P (s={s}): bit-identical to the twin; "
+              f"{rel_err(Y, M2 @ P):.2e} vs the FP64 product")
         time_case(rec, "ozaki_gemm", lambda: ozaki.ozaki_gemm(Ap, ea, Bp, eb),
                   lambda: ozaki.ozaki_gemm_twin(Ap, ea, Bp, eb, 7), lambda: torch.matmul(M2, P),
-                  nbytes(Ap, Bp, ea, eb, Y), ops, INT8_TC)
-        fp64_ms, _ = bound(nbytes(M2, P, Y), 2 * n * n * k, FP64_TC)
-        rec["ozaki_gemm"]["fp64_bound_ms"] = fp64_ms
-        print(f"  ozaki_gemm: {ops / 1e9:.0f} G int8 operations; the same product in FP64: "
-              f"bound {fp64_ms:.4f} ms at 67 TFLOP/s")
-        del M2, Ap, Y, Yt, split
-        # a layer shape of the Ozaki move (the ket layer without slicing):
-        # A (s,e,r) x (u,l) = 98 x 49 by B (u,l) x (m,j,v,i) = 49 x 1.06M
-        q1 = (T_int.permute(0, 1, 3, 2).reshape(D * D * CHI, CHI)
-              @ (env.C @ T_int.permute(3, 0, 1, 2).reshape(CHI, D * D * CHI)))
-        A_l = a.permute(0, 3, 4, 1, 2).reshape(2 * D * D, D * D).contiguous()
+                  nbytes(Ap, Bp, ea, eb, Y), s * (s + 1) // 2 * 2 * n * n * k, INT8_TC)
+        del Ap, Y, split
+        # every other product shape of the Ozaki move (slice_phys, as
+        # run_ctmrg_mixed's float64 phase runs it) and the unsliced layers, real
+        # operands of the D=7 path: bit-identical to the twin, timed against
+        # FP64 torch.matmul, each with its bound
+        rec["ozaki_gemm"]["shapes"] = {"M2 P": oz_shape(M2, P, s)}
+        Tm = T_int.permute(0, 1, 3, 2).reshape(D * D * CHI, CHI)
+        ct = env.C @ T_int.permute(3, 0, 1, 2).reshape(CHI, D * D * CHI)
+        q1 = Tm @ ct
+        A_k = a.permute(0, 3, 4, 1, 2).reshape(2 * D * D, D * D).contiguous()
         B_l = q1.view(D, D, CHI, D, D, CHI).permute(3, 0, 1, 2, 4, 5).reshape(D * D, -1)
         B_l = B_l.contiguous()
-        del q1
+        A_s = a[0].permute(2, 3, 0, 1).reshape(D * D, D * D).contiguous()
+        A_b = a.conj().permute(3, 4, 0, 1, 2).reshape(D * D, 2 * D * D).contiguous()
         split = {}
-        for label, X, axis in (("A", A_l, 1), ("B", B_l, 0)):
+        for label, X, axis in (("ket A", A_k, 1), ("layer B", B_l, 0)):
             Xp, ex = ozaki.ozaki_split(X, s, 7, axis)
             Xpt, ext = ozaki.ozaki_split_twin(X, s, 7, axis)
             same = torch.equal(Xp, Xpt) and torch.equal(ex, ext)
-            del Xpt, ext
+            del Xp, ex, Xpt, ext
             check(same, f"ozaki_split layer {label} {tuple(X.shape)} axis={axis}: digit planes "
-                        f"{tuple(Xp.shape)} and exponents bit-identical to the twin")
-            split[label] = (Xp, ex)
-        (Alp, eal), (Blp, ebl) = split["A"], split["B"]
-        Yl = ozaki.ozaki_gemm(Alp, eal, Blp, ebl)
-        e = rel_err(Yl, ozaki.ozaki_gemm_twin(Alp, eal, Blp, ebl, 7))
-        e64 = rel_err(Yl, A_l @ B_l)
-        check(e <= OZ_TOL, f"ozaki_gemm layer {tuple(A_l.shape)} x {tuple(B_l.shape)}: rel err "
-                           f"{e:.2e} <= {OZ_TOL:.0e} vs the twin; {e64:.2e} vs the FP64 product")
-        ms_split = cuda_ms(lambda: ozaki.ozaki_split(B_l, s, 7, 0))
-        ms_gemm = cuda_ms(lambda: ozaki.ozaki_gemm(Alp, eal, Blp, ebl))
-        ms_fp64 = cuda_ms(lambda: A_l @ B_l)
-        rec["ozaki_split"]["ms_layer_shape"] = ms_split
-        rec["ozaki_gemm"]["ms_layer_shape"] = ms_gemm
-        print(f"  at the layer shape: ozaki_split of B {ms_split:.3f} ms, ozaki_gemm "
-              f"{ms_gemm:.3f} ms, FP64 torch.matmul {ms_fp64:.3f} ms")
-        del A_l, B_l, Yl, split, Alp, Blp
+                        f"and exponents bit-identical to the twin")
+        rec["ozaki_split"]["ms_layer_shape"] = cuda_ms(lambda: ozaki.ozaki_split(B_l, s, 7, 0))
+        print(f"  ozaki_split of the layer's B {tuple(B_l.shape)}: "
+              f"{rec['ozaki_split']['ms_layer_shape']:.3f} ms")
+        shapes = rec["ozaki_gemm"]["shapes"]
+        shapes["ct"] = oz_shape(env.C, T_int.permute(3, 0, 1, 2).reshape(CHI, -1), s)
+        shapes["q1, z1"] = oz_shape(Tm, ct, s)
+        del ct
+        shapes["sliced layer"] = oz_shape(A_s, B_l, s)
+        shapes["ket layer"] = oz_shape(A_k, B_l, s)
+        B_b = (A_k @ B_l).contiguous()  # the ket layer's output, the bra layer's B
+        del B_l
+        shapes["bra layer"] = oz_shape(A_b, B_b, s)
+        del B_b
+        shapes["nT"] = oz_shape(P.mT, M2, s)
+        # any other (s, w) takes the kernel's table-driven instance
+        shapes["C T, s=6"] = oz_shape(env.C, T_int.permute(3, 0, 1, 2).reshape(CHI, -1), 6)
+        del M2, q1, Tm
 
         # ctm_commit after one move, in both modes, against the twin
         C2, T2, spec2, P2, W2 = mf.ctm_move_w(a, env.C, T_int, P, n_power=N_POWER)
@@ -994,12 +1106,12 @@ def graph_replay_ms(a, env0, n_chunks: int) -> float:
     return 1000.0 * (time.perf_counter() - t0) / (n_chunks * MOVES_PER_SYNC)
 
 
-def phase7(dev) -> dict:
+def phase7(dev) -> tuple:
     print(f"== phase 7: the large-D slice, J1-J2 C4v D={D} chi={CHI}", flush=True)
     from tpeps_torch.ctm.c4v import move_factored as mf
     from tpeps_torch.ctm.c4v.env import init_env
     from tpeps_torch.ctm.c4v.move_graph import MoveGraph, run_fixed_point_factored
-    from tpeps_torch.kernels import launch_counts, reset_launch_counts
+    from tpeps_torch.kernels import launch_counts, ozaki, reset_launch_counts
     from tpeps_torch.models.j1j2 import J1J2_C4V_BIPARTITE
 
     a = bench_state(D, dev)
@@ -1039,6 +1151,7 @@ def phase7(dev) -> dict:
     T_int = mf.to_int_layout(env0.T, D)
     P0 = mf.cold_start_basis(CHI * D * D, CHI, a.dtype, dev)
     moves = {}
+    ozaki.SHAPE_LAUNCHES.clear()
     for impl in ("xla", "ozaki"):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1047,6 +1160,8 @@ def phase7(dev) -> dict:
         torch.cuda.synchronize()
         print(f"  one move, slice_phys, dot_impl={impl}: {1000 * (time.perf_counter() - t0):.1f} ms "
               "(first call)")
+    shape_launches = dict(ozaki.SHAPE_LAUNCHES)
+    print(f"  ozaki_gemm launches of the Ozaki move by (s, m, kp, n): {shape_launches}")
     (Cx, Tx, sx, _), (Co, To, so, _) = moves["xla"], moves["ozaki"]
     e_s, e_C, e_T = (float((x - y).abs().max()) for x, y in ((sx, so), (Cx, Co), (Tx, To)))
     check(e_s <= OZ_MOVE_SPEC_TOL and max(e_C, e_T) <= OZ_MOVE_ENV_TOL,
@@ -1094,7 +1209,7 @@ def phase7(dev) -> dict:
           f"mixed driver vs float64 run_ctmrg ({n_r} moves, dist {d_r:.3e}, energy "
           f"{e_ref:.12f}): |dE| {dE:.2e} <= {MIXED_E_TOL:.0e}, corner spectra max abs diff "
           f"{d_spec:.2e} <= {MIXED_SPEC_TOL:.0e}")
-    return counts
+    return counts, shape_launches
 
 
 def ab_state(aux, dev, seed=0):
@@ -2197,6 +2312,122 @@ def phase10(dev) -> tuple:
     return rec, counts_entry, counts_frozen, counts_train
 
 
+# what each -DTPEPS_ABLATE bit leaves out (csrc/cholqr.cu, csrc/ozaki.cu)
+ABLATIONS = {"cholqr.cu": {0: "whole", 1: "no loads", 2: "no MMAs", 3: "no loads, no MMAs",
+                           4: "no k loop"},
+             "ozaki.cu": {0: "whole", 2: "no wgmmas", 8: "no recombination", 16: "no stores"}}
+
+
+def ablate() -> dict:
+    """Where the time of K3's Gram and K7's ``ozaki_gemm`` goes: each source
+    built again with one part of its kernel left out (``-DTPEPS_ABLATE``,
+    one nvcc each, all started together), each copy's ptxas registers, and
+    each called through its C entry on the same seeded inputs and timed
+    side by side (:func:`graph_ms`, the smaller of two means, the copies in
+    turn and then in reverse).  The Gram at k = chi in f64, ``gram`` and
+    ``gram_ridge``; ``ozaki_gemm`` at the sliced and the ket layers and at
+    M2 P, beside FP64 ``torch.matmul``.  Run by ``chip_smoke.py --ablate``."""
+    import ctypes
+
+    from tpeps_torch.kernels import build as kb
+    from tpeps_torch.kernels import ozaki
+
+    print("== ablation: K3 gram and K7 ozaki_gemm with parts left out", flush=True)
+    dev = torch.device("cuda", 0)
+    out_dir = kb.BUILD_DIR / "ablate"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    nvcc, procs = kb.find_nvcc(), {}
+    try:
+        for src, variants in ABLATIONS.items():
+            for bits in variants:
+                so = out_dir / f"{Path(src).stem}_{bits}.so"
+                cmd = [nvcc, *kb.NVCC_FLAGS, f"-DTPEPS_ABLATE={bits}", "-shared",
+                       str(kb.CSRC_DIR / src), "-o", str(so)]
+                procs[src, bits] = (so, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                         stderr=subprocess.STDOUT, text=True))
+        libs = {}
+        for (src, bits), (so, proc) in procs.items():
+            log, _ = proc.communicate()
+            check(proc.returncode == 0, f"nvcc {src} -DTPEPS_ABLATE={bits}: {log[-2000:]}")
+            for name, line in ptxas_lines(log):
+                if name.startswith(("gram_kernel", "ozaki_gemm_kernel")):
+                    print(f"  ptxas {src} {ABLATIONS[src][bits]}: {name}: {line}")
+            lib = ctypes.CDLL(str(so))
+            for fn, argtypes in kb._SIGNATURES.items():
+                if hasattr(lib, fn):
+                    getattr(lib, fn).argtypes = argtypes
+            for fn in ("tpeps_gram_scratch_f64", "tpeps_gram_scratch_f32"):
+                if hasattr(lib, fn):
+                    getattr(lib, fn).restype = ctypes.c_int64
+                    getattr(lib, fn).argtypes = (ctypes.c_int,) * 4
+            libs[src, bits] = lib
+    finally:
+        for _, proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+    def in_turns(calls: dict, reps: int, replays: int) -> dict:
+        first = {k: graph_ms(fn, reps, replays) for k, fn in calls.items()}
+        second = {k: graph_ms(calls[k], reps, replays) for k in reversed(list(calls))}
+        return {k: min(first[k], second[k]) for k in calls}
+
+    def stream():  # the capturing stream inside a graph
+        return torch.cuda.current_stream(dev).cuda_stream
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    rec = {}
+    n, k = CHI * D * D, CHI
+    A = torch.randn(n, k, generator=gen, device=dev, dtype=torch.float64)
+    B = torch.randn(n, k, generator=gen, device=dev, dtype=torch.float64)
+    G = torch.empty(k, k, dtype=torch.float64, device=dev)
+    for label, X, Y, eps, sym in (("gram", A, B, 0.0, 0), ("gram_ridge", A, A, 1e-12, 1)):
+        calls = {}
+        for bits in ABLATIONS["cholqr.cu"]:
+            lib = libs["cholqr.cu", bits]
+            scratch = lib.tpeps_gram_scratch_f64(n, k, k, sym)
+            check(scratch >= 0, f"{label} scratch query: {scratch}")
+            part = torch.empty(max(scratch, 1), dtype=torch.float64, device=dev)
+            counters = torch.zeros(4096, dtype=torch.int32, device=dev)
+
+            def call(lib=lib, part=part, counters=counters, X=X, Y=Y, eps=eps, sym=sym):
+                err = lib.tpeps_gram_clusters_f64(X.data_ptr(), Y.data_ptr(), part.data_ptr(),
+                                                  counters.data_ptr(), 4096, G.data_ptr(), n, k,
+                                                  k, eps, sym, stream())
+                if err:
+                    fail(f"{label} launch: CUDA error {err}")
+            calls[ABLATIONS["cholqr.cu"][bits]] = call
+        calls["torch.matmul"] = lambda X=X, Y=Y: torch.matmul(X.mT, Y)
+        rec[f"{label} f64 {n} x {k}"] = ms = in_turns(calls, 20, 5)
+        print(f"  {label} f64 {n} x {k}: " + ", ".join(f"{v} {t * 1000:.1f} us"
+                                                     for v, t in ms.items()), flush=True)
+    del A, B
+    kind_c, coef_c = ozaki._table_c(8, 7)
+    for label, (m, kk, nn) in {"sliced layer": (D * D, D * D, D * D * CHI * CHI),
+                               "ket layer": (2 * D * D, D * D, D * D * CHI * CHI),
+                               "M2 P": (n, n, CHI)}.items():
+        X = torch.randn(m, kk, generator=gen, device=dev, dtype=torch.float64)
+        Y = torch.randn(kk, nn, generator=gen, device=dev, dtype=torch.float64)
+        Xp, ex = ozaki.ozaki_split(X, 8, 7, 1)
+        Yp, ey = ozaki.ozaki_split(Y, 8, 7, 0)
+        C = torch.empty(m, nn, dtype=torch.float64, device=dev)
+        calls = {}
+        for bits in ABLATIONS["ozaki.cu"]:
+            def call(lib=libs["ozaki.cu", bits]):
+                err = lib.tpeps_ozaki_gemm(Xp.data_ptr(), ex.data_ptr(), Yp.data_ptr(),
+                                           ey.data_ptr(), C.data_ptr(), m, nn, Xp.shape[2], 8, 7,
+                                           kind_c, coef_c, stream())
+                if err:
+                    fail(f"ozaki_gemm {label} launch: CUDA error {err}")
+            calls[ABLATIONS["ozaki.cu"][bits]] = call
+        calls["FP64 torch.matmul"] = lambda X=X, Y=Y: torch.matmul(X, Y)
+        rec[f"ozaki_gemm {label} {m} x {kk} by {kk} x {nn}"] = ms = in_turns(calls, 5, 2)
+        print(f"  ozaki_gemm {label} {m} x {kk} by {kk} x {nn}: "
+              + ", ".join(f"{v} {t:.3f} ms" for v, t in ms.items()), flush=True)
+        del X, Y, Xp, Yp, C
+    return rec
+
+
 def main() -> None:
     t_start = time.perf_counter()
 
@@ -2217,7 +2448,10 @@ def main() -> None:
     lap(5)
     phase6(dev)
     lap(6)
-    counts_large = phase7(dev)
+    counts_large, oz_launches = phase7(dev)
+    for sh in rec["ozaki_gemm"]["shapes"].values():  # phase 7(c)'s eager Ozaki move
+        m, k, n = sh["shape"]
+        sh["launches_per_ozaki_move"] = oz_launches.get((sh["slices"], m, sh["kp"], n), 0)
     lap(7)
     rec_ab, counts_ab, counts_fz = phase8(dev)
     rec.update(rec_ab)
@@ -2263,4 +2497,9 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:] == ["--ablate"]:
+        print(phase0())
+        phase1()
+        print(json.dumps({"ablation": ablate()}))
+    else:
+        main()

@@ -24,6 +24,7 @@ from tpeps.ipeps.ipeps_c4v import symmetrize_c4v as j_symmetrize
 from tpeps.linalg import ozaki as jo
 from tpeps_torch.ctm.c4v import move_factored as tm
 from tpeps_torch.io.convert import to_torch
+from tpeps_torch.kernels import ozaki as ko
 from tpeps_torch.kernels.ozaki import ozaki_gemm_twin, ozaki_split_twin, padded_k
 from tpeps_torch.linalg import ozaki as to
 
@@ -98,7 +99,7 @@ def test_matmul_zero_rows():
 
 def test_int32_group_sums_wrap():
     """A digit group whose sum leaves int32 wraps, as XLA's int32 dot (and
-    the kernel's IMMA without .satfinite) does."""
+    the kernel's wgmma without .satfinite) does."""
     k = 160000  # 160000 * 127^2 = 2.58e9 > 2^31
     Ap = torch.full((1, 2, k), 127, dtype=torch.int8)
     Bp = torch.full((1, 3, k), 127, dtype=torch.int8)
@@ -220,3 +221,81 @@ def test_split_twin_matches_kernel_layout():
     np.testing.assert_array_equal(eb.numpy(), [2.0, 4.0])
     # 0.5 -> digit 64 of 128 in the top plane; -0.25 -> -32
     assert pa[0, 0, 0] == 64 and pa[0, 0, 1] == -32 and pa[1, 0, 0] == 0
+
+
+# --- host-side logic of the ozaki_gemm kernel: its recombination table
+# (csrc/ozaki.cu reads it; the kernel itself runs on the card)
+
+def _jax_accumulate_steps(s, w):
+    """The steps of tpeps/linalg/ozaki.py:_accumulate for every total, with
+    its own expressions: (total, "f64", scale), (total, "tail0", None),
+    (total, "tail", factor); and the scale of the float32 tail."""
+    steps, t_tail, t_prev = [], None, None
+    for total in range(s + 1, 1, -1):
+        if total * w >= 42:
+            if t_tail is None:
+                t_tail = total
+                steps.append((total, "tail0", None))
+            else:
+                steps.append((total, "tail", float(2.0 ** ((total - t_prev) * w))))
+            t_prev = total
+        else:
+            steps.append((total, "f64", float(2.0 ** (-total * w))))
+    return steps, (float(2.0 ** (-t_prev * w)) if t_tail is not None else None)
+
+
+@pytest.mark.parametrize("w", range(1, 8))
+@pytest.mark.parametrize("s", range(1, 9))
+def test_recombination_table_is_jax_accumulate(s, w):
+    kind, scale, factor, tail_scale = ko.recombination_table(s, w)
+    steps, final = _jax_accumulate_steps(s, w)
+    names = {1: "f64", 2: "tail0", 3: "tail"}
+    got = [(g + 2, names[kind[g]], scale[g] if kind[g] == 1 else factor[g] if kind[g] == 3
+            else None) for g in range(ko.MAX_SLICES - 1, -1, -1) if kind[g]]
+    assert got == steps  # Python floats: == is bit for bit here (no NaN, no -0.0)
+    assert all(kind[g] == 0 for g in range(s, ko.MAX_SLICES))  # totals past s + 1
+    assert (tail_scale if tail_scale != 0.0 else None) == final
+    # the kernel holds the tail factors in float32: exact
+    assert all(float(np.float32(f)) == f for f in factor)
+
+
+def _recombine_as_kernel(Ap, ea, Bp, eb, w):
+    """The kernel's epilogue in torch ops: int32 group sums (wrapped), then
+    the table walked from group MAX_SLICES - 1 down to 0."""
+    s = Ap.shape[0]
+    kind, scale, factor, tail_scale = ko.recombination_table(s, w)
+    sums = [sum((Ap[p].double() @ Bp[g - p].double().T).to(torch.int64)
+                for p in range(g + 1) if p < s and g - p < s) for g in range(s)]
+    sums = [((x + 2**31) % 2**32 - 2**31).to(torch.int32) for x in sums]
+    out = torch.zeros(sums[0].shape, dtype=torch.float64)
+    tail = torch.zeros(sums[0].shape, dtype=torch.float32)
+    for g in range(ko.MAX_SLICES - 1, -1, -1):
+        if kind[g] == 1:
+            out = out + sums[g].double() * scale[g]
+        elif kind[g] == 2:
+            tail = sums[g].float()
+        elif kind[g] == 3:
+            tail = tail * torch.tensor(factor[g], dtype=torch.float32) + sums[g].float()
+    if tail_scale != 0.0:
+        out = out + tail.double() * tail_scale
+    return out * ea[:, None] * eb[None, :]
+
+
+@pytest.mark.parametrize("s,w", [(1, 7), (3, 7), (5, 7), (6, 7), (8, 7), (8, 5), (8, 3), (4, 2)])
+def test_kernel_recombination_is_the_twin(s, w):
+    """Walking the table as the kernel does gives the twin bit for bit."""
+    rng = np.random.RandomState(s + 10 * w)
+    hi = 2**w - 1
+    Ap = torch.from_numpy(rng.randint(-hi, hi + 1, (s, 16, 64)).astype(np.int8))
+    Bp = torch.from_numpy(rng.randint(-hi, hi + 1, (s, 24, 64)).astype(np.int8))
+    ea = torch.from_numpy(2.0 ** rng.randint(-3, 4, 16))
+    eb = torch.from_numpy(2.0 ** rng.randint(-3, 4, 24))
+    assert torch.equal(_recombine_as_kernel(Ap, ea, Bp, eb, w), ozaki_gemm_twin(Ap, ea, Bp, eb, w))
+
+
+def test_recombination_table_rejects_bad_slices():
+    with pytest.raises(ValueError, match="slices"):
+        ko.recombination_table(9, 7)
+    with pytest.raises(ValueError, match="slices"):
+        ko.recombination_table(0, 7)
+

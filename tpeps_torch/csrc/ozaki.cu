@@ -13,48 +13,92 @@
 //     writes s int8 planes of (rows, kp), kp = k rounded up to 32 with zero
 //     digits (exact: a zero digit adds nothing to any product), and e.  A's
 //     planes are A's own rows, row-major (m, kp); B's are its columns,
-//     (n, kp), which is the "col" operand layout of the IMMA below.
+//     (n, kp): both K-major, the only layout the int8 wgmma takes.
 //   ozaki_gemm: for each total t = p + q in [2, s + 1], the group sum
-//     sum_{p} A_p B_{t-p}^T as int8 x int8 -> int32 products on the tensor
-//     cores (mma.sync m16n8k32 .s8.s8.s32, no .satfinite: int32 wraps as
-//     XLA's int32 dot does); then, per element, the recombination in
-//     _accumulate's order and precision: groups with t w >= 42 chained in
-//     float32 (tail = tail 2^((t - t_prev) w) + float(acc_t)), the others
-//     added to a float64 sum as acc_t 2^(-t w) from t = s + 1 down, the f32
-//     tail added last, and the sum times e_A[row] e_B[col].  Every rounding
-//     step is an explicit _rn intrinsic, so nvcc's FMA contraction cannot
-//     change it.  The int32 group sums live in registers only.
+//     sum_{p} A_p B_{t-p}^T as int8 x int8 -> int32 products (wgmma
+//     .s32.s8.s8, no .satfinite: int32 wraps as XLA's int32 dot does, and a
+//     wrapping sum is exact in any order); then, per element, the
+//     recombination in _accumulate's order and precision: groups with
+//     t w >= 42 chained in float32 (tail = tail 2^((t - t_prev) w) +
+//     float(acc_t)), the others added to a float64 sum as acc_t 2^(-t w)
+//     from t = s + 1 down, the f32 tail added last, and the sum times
+//     e_A[row] e_B[col].  Every rounding step is an explicit _rn intrinsic,
+//     so nvcc's FMA contraction cannot change it: the result is bit for bit
+//     the twin's.  The scales and tail factors come from the host as a table
+//     (tpeps_torch/kernels/ozaki.py:recombination_table), one per total,
+//     or at s = 8, w = 7 compiled in (the launcher checks the table against it).
 //
-// What bounds it on an H100.  ozaki_gemm does s(s+1)/2 int8 products:
-// 36 x 2mnk operations at s = 8 (the corner apply, 7203 x 7232 by 7232 x 147:
-// 548 G int8 operations, 0.28 ms at 1979 TOP/s, against 15.3 GFLOP, 0.23 ms,
-// of the same product in FP64 on the DMMA tensor cores), reading s kp-byte
-// digit rows per row and column.  The layer products (m = 49, n ~ 1.06M,
-// k = 49 -> 64) read and write more bytes than they compute: memory-bound.
-// ozaki_split is memory-bound: 8 bytes read, s bytes written per element.
+// What bounds ozaki_gemm on an H100.  s(s+1)/2 int8 products: 36 x 2mnk
+// operations at s = 8.  M2 P (7203 x 7232 by 7232 x 147): 548 G int8
+// operations, 0.28 ms at 1979 TOP/s (the FP64 product: 0.23 ms on DMMA).
+// The layer products (m = 49 or 98, k = 49 or 98 -> kp 64/128, n = 1.06M)
+// read B's planes (542 MB at kp = 64) and write C (415-830 MB): bound by
+// bytes, 0.29-0.41 ms.  Two limits shape the design: the register file
+// holds the 8 int32 group sums of at most ~6K outputs per SM (32 bytes
+// each), and wgmma from shared memory at N = 32 reads 3 KB of operands per
+// 65K multiply-adds, more than shared memory delivers at the tensor rate,
+// where N = 64 reads 4 KB per 131K: a narrow N starves.  The recombination
+// is ~20 floating-point operations and conversions per output, comparable
+// to the MMAs at the layer shapes, so it has to be spread over many warps.
 //
-// Design (simple first).  ozaki_split fuses the reduction with the digit
-// pass: a warp owns a row of A (two passes over the row, the second from
-// L1/L2), a block of 32 x 8 threads owns 32 columns of B and transposes its
-// digits through shared memory so that each plane row is written as whole
-// 32-byte runs.  ozaki_gemm: a 64 x 64 output tile per block of 8 warps
-// (warp tile 32 x 16: 2 x 2 mma tiles), all s digit planes of the A and B
-// tiles of one 32-deep k step staged in shared memory by cp.async (two
-// stages, rows padded to 48 bytes so the fragment loads hit 32 banks).  Each
-// warp holds B's fragments of all planes, walks A's planes once, and
-// accumulates each pair into its group's int32 registers (s groups of 16).
-// No wgmma/TMA yet.
+// Design.  One persistent block per SM walks 64 x 64 output tiles, n
+// fastest, so that the blocks working at one time share A's rows through
+// L2.  A producer warpgroup (one thread issues) feeds a ring of stages (TMA,
+// cp.async.bulk.tensor, 32-byte swizzle, 32 bytes of k per stage: kp is a
+// multiple of 32, so no k is padded, and the ring is twice as deep as one
+// of 64-byte stages in the same space) through full/empty mbarriers; rows
+// past m or n, and planes past s, come in as zeros, so all 36 pairs run
+// without a branch.  The two consumer warpgroups compute the same tile with
+// m64n64k32 wgmmas from shared memory and split the groups: the high one
+// takes totals 9..6 (26 pairs: the float32 tail), the low one 5..2 (10
+// pairs: the float64 sum), 4 x 32 int32 registers each; registers go by
+// warpgroups, so setmaxnreg moves the producer's to the consumers.  Each
+// writes its part of every element into a handoff buffer (two, used in
+// turn, rows padded against bank conflicts); after one named barrier both
+// finish half the tile each from it, with the exponents read before the
+// tile's wgmmas, and store 64-double (512-byte) row runs of C; C's rows are
+// not 16-byte aligned (n is odd), so no TMA store.  At s = 8, w = 7, which
+// every caller uses, the recombination is compiled in (a table-driven
+// instance serves the other s and w): each int32 goes to float64 scaled by
+// its power of two in one exact add, and the fused multiply-adds round
+// exactly where _accumulate's multiply-then-add does.  Where A has at most
+// two row tiles and its planes fit (the layers: 64 KB at m = 98, kp = 64
+// and at m = 49, kp = 128), A stays resident and the stages carry B alone,
+// each B tile used for every row tile: B's planes come from device memory
+// once.  No split-K: the path's shapes have 339-16545 work items for 132
+// SMs.  Capturable in a CUDA graph: no host synchronisation, nothing
+// allocated, the attributes set on the first call.
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+// parts of ozaki_gemm left out for a timing breakdown, never in the library:
+// chip_smoke.py --ablate builds copies with -DTPEPS_ABLATE=<bits>, 2 the
+// wgmmas, 8 the recombination chains (one group sum converted instead), 16
+// the stores of C (kept only for a NaN, so the work before them stays)
+#ifndef TPEPS_ABLATE
+#define TPEPS_ABLATE 0
+#endif
 
 namespace {
 
 constexpr int MAX_S = 8;
 constexpr int SNT = 256;        // threads of a split block
-constexpr int BM = 64, BN = 64, BK = 32;
-constexpr int GNT = 256;        // threads of a gemm block: 8 warps, 2 (m) x 4 (n)
-constexpr int ROWB = 48;        // shared bytes per staged tile row (32 + 16 pad)
-constexpr int TAIL_BITS = 42;   // groups with t w >= 42 recombine in float32
+constexpr int BK = 32;          // k bytes per plane row: the planes' alignment, a gemm stage, a wgmma
+constexpr int TM = 64, TN = 64;    // the block tile: one wgmma m64n64 per pair
+// two consumer warpgroups and a producer warpgroup: registers go by
+// warpgroups, 65536 / 384 = 170 a thread at launch, and setmaxnreg moves
+// them to the consumers (232 each) from the producer (40)
+constexpr int GEMM_THREADS = 3 * 128;
+constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;
+constexpr int MAX_STAGES = 8;
+// the handoff between the warpgroups, two buffers of a float64 sum and a
+// float32 tail per element, from which both finish and store the tile; rows
+// XP = 65 elements apart, which spreads the fragment writes over the banks
+constexpr int XP = TN + 1;
+constexpr int X_BYTES = 2 * TM * XP * (8 + 4);
+constexpr int SMEM_LIMIT = 232448;
+constexpr int RESIDENT_MAX = 64 * 1024;  // A's planes kept in shared memory up to this size
 
 // max that propagates NaN (as jnp.max does)
 __device__ __forceinline__ double nanmax(double a, double b) { return (a > b || a != a) ? a : b; }
@@ -174,157 +218,395 @@ split_cols(const double* __restrict__ X, int8_t* __restrict__ planes, double* __
   }
 }
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(bytes));
+
+// the recombination table of one (s, w), indexed by group g = t - 2
+struct Recomb {
+  int kind[MAX_S];          // 0 absent (t > s + 1), 1 float64 group, 2 first tail group, 3 tail group
+  double scale[MAX_S];      // kind 1: 2^(-t w)
+  float factor[MAX_S];      // kind 3: 2^((t - t_prev) w)
+  double tail_scale;        // 2^(-t_last w) for the f32 tail, 0 when there is none
+  int has_tail;
+};
+
+struct GemmParams {
+  const double* ea;
+  const double* eb;
+  double* C;
+  int64_t m, n;
+  int kp;
+  int resident;             // 1: A's planes (all m, at most two tiles) stay in shared memory
+  int stages;
+  int tiles_m, tiles_n;
+  Recomb rc;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// waits for the phase of the given parity; a lost arrival traps (a launch
+// error) after ~2^35 cycles instead of hanging the card
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  const long long t0 = clock64();
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+    if (!done && clock64() - t0 > (1LL << 35)) __trap();
+  }
+}
+
+// one box {BK, rows, s} of a (s, rows, kp) plane tensor into shared memory
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, int k0, int row0,
+                                         uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4}], [%5];\n"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(k0), "r"(row0), "r"(0), "r"(bar)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a K-major tile with 32-byte rows in the
+// 32-byte swizzle that TMA wrote (layout type 3): 8-row groups 256 bytes apart
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(1) << 16) |
+         (static_cast<uint64_t>(256 >> 4) << 32) | (static_cast<uint64_t>(3) << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
 template <int N>
-__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
-
-__device__ __forceinline__ void mma_s8(int* c, const uint32_t* a, const uint32_t* b) {
-  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
-__device__ __forceinline__ uint32_t lds32(const unsigned char* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+// d (64 x 64 int32, this thread's 32) += A (64 x 32 s8) B (64 x 32 s8)^T
+__device__ __forceinline__ void wgmma_s8(int (&d)[32], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, "
+      "%11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, "
+      "%22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]),
+        "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]),
+        "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]),
+        "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+      : "l"(da), "l"(db), "r"(1));
 }
 
-template <int S>
-constexpr int gemm_smem() { return 2 * S * (BM + BN) * ROWB; }
-
-// stage the s planes of the A rows [m0, m0 + BM) and B rows [n0, n0 + BN)
-// for the k step [k0, k0 + 32); rows past the edge are zero-filled
-template <int S>
-__device__ __forceinline__ void load_stage(unsigned char* sa, const int8_t* __restrict__ A,
-                                           const int8_t* __restrict__ B, int64_t m0, int64_t n0,
-                                           int64_t m, int64_t n, int kp, int k0) {
-  unsigned char* sb = sa + S * BM * ROWB;
-  for (int i = threadIdx.x; i < S * BM * 2; i += GNT) {
-    const int p = i / (2 * BM), r = (i / 2) % BM, h = i % 2;
-    const int64_t row = m0 + r;
-    const bool in = row < m;
-    const int8_t* src = A + (p * m + (in ? row : 0)) * kp + k0 + 16 * h;
-    cp_async16(sa + (p * BM + r) * ROWB + 16 * h, src, in ? 16 : 0);
-  }
-  for (int i = threadIdx.x; i < S * BN * 2; i += GNT) {
-    const int p = i / (2 * BN), r = (i / 2) % BN, h = i % 2;
-    const int64_t row = n0 + r;
-    const bool in = row < n;
-    const int8_t* src = B + (p * n + (in ? row : 0)) * kp + k0 + 16 * h;
-    cp_async16(sb + (p * BN + r) * ROWB + 16 * h, src, in ? 16 : 0);
-  }
-  cp_async_commit();
+// keeps the compiler from moving reads of the accumulators above the wait
+__device__ __forceinline__ void fence_acc(int (&acc)[4][32]) {
+#pragma unroll
+  for (int g = 0; g < 4; ++g)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) asm volatile("" : "+r"(acc[g][i])::"memory");
 }
 
-template <int S>
-__global__ void __launch_bounds__(GNT)
-ozaki_gemm_kernel(const int8_t* __restrict__ A, const double* __restrict__ ea,
-                  const int8_t* __restrict__ B, const double* __restrict__ eb,
-                  double* __restrict__ C, int64_t m, int64_t n, int kp, int w) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  constexpr int STAGE = S * (BM + BN) * ROWB;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int wm = warp / 4, wn = warp % 4;  // warp tile: rows 32 wm, columns 16 wn
-  const int g = lane / 4, t = lane % 4;
-  const int64_t m0 = static_cast<int64_t>(blockIdx.y) * BM;
-  const int64_t n0 = static_cast<int64_t>(blockIdx.x) * BN;
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
 
-  int acc[S][2][2][4];  // [group t - 2][m tile][n tile][fragment]
-#pragma unroll
-  for (int q = 0; q < S; ++q)
-#pragma unroll
-    for (int i = 0; i < 16; ++i) acc[q][i / 8][(i / 4) % 2][i % 4] = 0;
+// a 2^-shift as float64, exact, by one add: 2^(52 - shift) + (a + 2^31)
+// 2^-shift, less 2^(52 - shift) + 2^(31 - shift) (the conversion unit does
+// 16 a clock per SM, the adder 64)
+template <int SHIFT>
+__device__ __forceinline__ double scaled_int(int a) {
+  constexpr double magic = (4503599627370496.0 + 2147483648.0) / static_cast<double>(1LL << SHIFT);
+  return __dsub_rn(__hiloint2double(0x43300000 - (SHIFT << 20), a ^ static_cast<int>(0x80000000u)),
+                   magic);
+}
+__device__ __forceinline__ double int_to_double(int a) { return scaled_int<0>(a); }
 
-  const int nk = kp / BK;
-  load_stage<S>(smem, A, B, m0, n0, m, n, kp, 0);
-  for (int kt = 0; kt < nk; ++kt) {
-    if (kt + 1 < nk) {
-      load_stage<S>(smem + ((kt + 1) % 2) * STAGE, A, B, m0, n0, m, n, kp, (kt + 1) * BK);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const unsigned char* sa = smem + (kt % 2) * STAGE;
-    const unsigned char* sb = sa + S * BM * ROWB;
-    uint32_t bf[S][2][2];  // B fragments of every plane: [plane][n tile][reg]
+// _accumulate's recombination steps for the groups g0 + 3 .. g0 of one
+// element (g = t - 2, from the high totals down), on the running float64
+// sum and float32 tail, as the table says
+__device__ __forceinline__ void recombine_part(const Recomb& rc, int g0, const int (&acc)[4][32],
+                                               int i, double& out, float& tail) {
 #pragma unroll
-    for (int q = 0; q < S; ++q)
-#pragma unroll
-      for (int nt = 0; nt < 2; ++nt) {
-        const unsigned char* b = sb + (q * BN + 16 * wn + 8 * nt + g) * ROWB + 4 * t;
-        bf[q][nt][0] = lds32(b);
-        bf[q][nt][1] = lds32(b + 16);
-      }
-#pragma unroll
-    for (int p = 0; p < S; ++p) {
-      uint32_t af[2][4];
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        const unsigned char* a = sa + (p * BM + 32 * wm + 16 * mt + g) * ROWB + 4 * t;
-        af[mt][0] = lds32(a);
-        af[mt][1] = lds32(a + 8 * ROWB);
-        af[mt][2] = lds32(a + 16);
-        af[mt][3] = lds32(a + 8 * ROWB + 16);
-      }
-      // pairs (p + 1, q + 1) with total p + q + 2 <= s + 1
-#pragma unroll
-      for (int q = 0; q < S - p; ++q)
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-          for (int nt = 0; nt < 2; ++nt) mma_s8(acc[p + q][mt][nt], af[mt], bf[q][nt]);
-    }
-    __syncthreads();
+  for (int g = 3; g >= 0; --g) {
+    const int a = acc[g][i];
+    const int kind = rc.kind[g0 + g];
+    if (kind == 1) out = __dadd_rn(out, __dmul_rn(int_to_double(a), rc.scale[g0 + g]));
+    else if (kind == 2) tail = __int2float_rn(a);
+    else if (kind == 3) tail = __fadd_rn(__fmul_rn(tail, rc.factor[g0 + g]), __int2float_rn(a));
   }
+}
 
-  // recombination in _accumulate's order (tpeps/linalg/ozaki.py:107-131)
+// the pairs (p, q), p + q = g0 + g, of groups g0 .. g0 + 3 on one k slice
+template <int G0>
+__device__ __forceinline__ void mma_groups(int (&acc)[4][32], uint64_t da, uint64_t db,
+                                           uint32_t a_plane, uint32_t b_plane) {
 #pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
+  for (int g = 0; g < 4; ++g)
 #pragma unroll
-    for (int nt = 0; nt < 2; ++nt)
+    for (int pa = 0; pa <= G0 + g; ++pa)
+      wgmma_s8(acc[g], da + ((pa * a_plane) >> 4), db + (((G0 + g - pa) * b_plane) >> 4));
+}
+
+// One warpgroup's part of a block: the groups g0 .. g0 + 3 of every tile.
+// HIGH (g0 = 4): totals 9..6, the 26 pairs whose recombination is the
+// float32 tail; it hands the tail (and, off s = 8, w = 7, the float64 sum
+// so far) to the other warpgroup through shared memory.  LOW (g0 = 0):
+// totals 5..2, 10 pairs and the float64 sum; it finishes every element,
+// stages the tile and stores it.  At s = 8, w = 7 (FAST) the recombination
+// is compiled in: each scaling is by a power of two and exact, so the fused
+// forms round once where _accumulate's multiply-then-add rounds once too.
+template <bool FAST, bool HIGH>
+__device__ __forceinline__ void consume(const GemmParams& p, unsigned char* ring,
+                                        unsigned char* a_res, double* x_out, uint32_t full0,
+                                        uint32_t empty0, uint32_t a_full) {
+  constexpr int G0 = HIGH ? 4 : 0;
+  const int nk = p.kp / BK;
+  const int a_rows = p.resident ? TM * p.tiles_m : TM;
+  const uint32_t a_plane = a_rows * BK, b_plane = TN * BK;  // bytes of one plane of a k slice
+  const uint32_t a_slice = MAX_S * a_plane, b_slice = MAX_S * b_plane;
+  const uint32_t stage_bytes = (p.resident ? 0 : a_slice) + b_slice;
+  const int tid = threadIdx.x % 128, warp = tid / 32, lane = threadIdx.x % 32;
+  const int g8 = lane / 4, q4 = lane % 4;
+  const Recomb rc = p.rc;  // in registers: read through a reference, every element reloads it
+  if (p.resident) mbar_wait(a_full, 0);
+  int acc[4][32];
+  int tile_i = 0;  // this warpgroup's tiles so far: the handoff buffer alternates
+  const int items = p.resident ? p.tiles_n : p.tiles_m * p.tiles_n;
+  int64_t c0 = 0;  // this block's k slices so far: slot c % stages, phase (c / stages) & 1
+  for (int item = blockIdx.x; item < items; item += gridDim.x, c0 += nk) {
+    const int nt = p.resident ? item : item % p.tiles_n;
+    const int mt_first = p.resident ? 0 : item / p.tiles_n;
+    const int mt_last = p.resident ? p.tiles_m - 1 : mt_first;
+    for (int mt = mt_first; mt <= mt_last; ++mt) {
+      const bool release = mt == mt_last;  // else the slices stay for the next row tile
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int64_t row = m0 + 32 * wm + 16 * mt + g + (i >= 2 ? 8 : 0);
-        const int64_t col = n0 + 16 * wn + 8 * nt + 2 * t + (i % 2);
-        double out = 0.0;
-        float tail = 0.0f;
-        int t_prev = 0;
+      for (int g = 0; g < 4; ++g)
 #pragma unroll
-        for (int tot = S + 1; tot >= 2; --tot) {
-          const int a32 = acc[tot - 2][mt][nt][i];
-          if (tot * w >= TAIL_BITS) {
-            const float f = __int2float_rn(a32);
-            tail = t_prev == 0 ? f : __fadd_rn(__fmul_rn(tail, ldexpf(1.0f, (tot - t_prev) * w)), f);
-            t_prev = tot;
-          } else {
-            out = __dadd_rn(out, __dmul_rn(static_cast<double>(a32), ldexp(1.0, -tot * w)));
-          }
+        for (int i = 0; i < 32; ++i) acc[g][i] = 0;
+      // the exponents of the rows and the column this thread stores, read
+      // now so that their latency hides behind the wgmmas
+      constexpr int FIN = (TM / 2) * TN / 128;  // elements a thread finishes
+      double ea_v[FIN], eb_v;
+      {
+        const int64_t col = static_cast<int64_t>(nt) * TN + tid % TN;
+        eb_v = col < p.n ? p.eb[col] : 0.0;
+#pragma unroll
+        for (int j = 0; j < FIN; ++j) {
+          const int64_t row = static_cast<int64_t>(mt) * TM + (HIGH ? TM / 2 : 0) + 2 * j + tid / TN;
+          ea_v[j] = row < p.m ? p.ea[row] : 0.0;
         }
-        if (t_prev != 0)
-          out = __dadd_rn(out, __dmul_rn(static_cast<double>(tail), ldexp(1.0, -t_prev * w)));
-        if (row < m && col < n) C[row * n + col] = __dmul_rn(__dmul_rn(out, ea[row]), eb[col]);
       }
+      for (int kk = 0; kk < nk; ++kk) {
+        const int64_t c = c0 + kk;
+        const int slot = static_cast<int>(c % p.stages);
+        mbar_wait(full0 + 8 * slot, static_cast<uint32_t>((c / p.stages) & 1));
+        unsigned char* st = ring + slot * stage_bytes;
+        const uint32_t a_addr = p.resident ? smem_u32(a_res + kk * a_slice) + mt * TM * BK
+                                           : smem_u32(st);
+        const uint32_t b_addr = smem_u32(st + (p.resident ? 0 : a_slice));
+        wgmma_fence();
+        if (!(TPEPS_ABLATE & 2))
+          mma_groups<G0>(acc, smem_desc(a_addr), smem_desc(b_addr), a_plane, b_plane);
+        wgmma_commit();
+        wgmma_wait<1>();
+        if (release && kk > 0 && lane == 0) mbar_arrive(empty0 + 8 * ((c - 1) % p.stages));
+      }
+      wgmma_wait<0>();
+      fence_acc(acc);
+      if (release && lane == 0) mbar_arrive(empty0 + 8 * ((c0 + nk - 1) % p.stages));
+
+      // register i holds row 16 warp + g8 + 8 ((i / 2) % 2), column 8 (i / 4) + 2 q4 + i % 2
+      // of the tile; the handoff holds each element at row * XP + column.  The
+      // buffer was last read two tiles ago, before the previous barrier.
+      const bool live = static_cast<int64_t>(mt) * TM + 16 * warp < p.m;  // else nothing to store
+      double* xo = reinterpret_cast<double*>(reinterpret_cast<unsigned char*>(x_out) +
+                                             (tile_i & 1) * (X_BYTES / 2));  // out (f64), then tail (f32)
+      float* xt = reinterpret_cast<float*>(xo + TM * XP);
+      auto at = [&](int i) { return (16 * warp + g8 + 8 * ((i / 2) % 2)) * XP + 8 * (i / 4) + 2 * q4 + i % 2; };
+      if (FAST) {
+        if (live)
+#pragma unroll
+          for (int i = 0; i < 32; ++i) {
+            if (TPEPS_ABLATE & 8) {
+              if (HIGH) xt[at(i)] = __int2float_rn(acc[0][i]);
+              else xo[at(i)] = int_to_double(acc[0][i]);
+            } else if (HIGH) {  // totals 9..6: the float32 tail
+              float tail = __int2float_rn(acc[3][i]);
+              tail = __fmaf_rn(tail, 0x1p-7f, __int2float_rn(acc[2][i]));
+              tail = __fmaf_rn(tail, 0x1p-7f, __int2float_rn(acc[1][i]));
+              xt[at(i)] = __fmaf_rn(tail, 0x1p-7f, __int2float_rn(acc[0][i]));
+            } else {  // totals 5..2: the float64 sum (0 + a 2^-35 is a 2^-35, and +0 for 0)
+              double out = scaled_int<35>(acc[3][i]);
+              out = __dadd_rn(out, scaled_int<28>(acc[2][i]));
+              out = __dadd_rn(out, scaled_int<21>(acc[1][i]));
+              xo[at(i)] = __dadd_rn(out, scaled_int<14>(acc[0][i]));
+            }
+          }
+        named_sync(4, 256);
+      } else {  // the table's order: the high groups, then the low ones on their sums
+        if (HIGH && live)
+#pragma unroll
+          for (int i = 0; i < 32; ++i) {
+            double out = 0.0;
+            float tail = 0.0f;
+            recombine_part(rc, G0, acc, i, out, tail);
+            xo[at(i)] = out;
+            xt[at(i)] = tail;
+          }
+        named_sync(4, 256);
+        if (!HIGH && live)
+#pragma unroll
+          for (int i = 0; i < 32; ++i) {
+            double out = xo[at(i)];
+            float tail = xt[at(i)];
+            recombine_part(rc, G0, acc, i, out, tail);
+            xo[at(i)] = out;
+            xt[at(i)] = tail;
+          }
+        named_sync(5, 256);
+      }
+      // both warpgroups finish half the tile each, straight from the handoff:
+      // out + tail 2^(-t w) (at s = 8, w = 7 the product is exact, so the fused
+      // form rounds as _accumulate's multiply-then-add), times e_A e_B, stored
+      // in 64-double row runs
+      const double tail_scale = FAST ? 0x1p-42 : rc.tail_scale;
+#pragma unroll
+      for (int j = 0; j < FIN; ++j) {
+        const int r = (HIGH ? TM / 2 : 0) + 2 * j + tid / TN, cc = tid % TN;
+        const int64_t row = static_cast<int64_t>(mt) * TM + r, col = static_cast<int64_t>(nt) * TN + cc;
+        if (row < p.m && col < p.n) {
+          double out = xo[r * XP + cc];
+          if (FAST || rc.has_tail) out = __fma_rn(static_cast<double>(xt[r * XP + cc]), tail_scale, out);
+          out = __dmul_rn(__dmul_rn(out, ea_v[j]), eb_v);
+          if (!(TPEPS_ABLATE & 16) || out != out) p.C[row * p.n + col] = out;
+        }
+      }
+      ++tile_i;
+    }
+  }
 }
 
-template <int S>
-int launch_gemm(const int8_t* A, const double* ea, const int8_t* B, const double* eb, double* C,
-                int64_t m, int64_t n, int kp, int w, cudaStream_t stream) {
-  constexpr int smem = gemm_smem<S>();
-  static bool attr_set = false;  // set once, outside any later stream capture
-  if (!attr_set) {
-    cudaError_t e = cudaFuncSetAttribute(ozaki_gemm_kernel<S>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return e;
-    attr_set = true;
+// FAST: s = 8, w = 7 with the recombination compiled in; else the table's
+template <bool FAST>
+__global__ void __launch_bounds__(GEMM_THREADS, 1)
+ozaki_gemm_kernel(const __grid_constant__ CUtensorMap map_a,
+                  const __grid_constant__ CUtensorMap map_b, const __grid_constant__ GemmParams p) {
+  // the only shared memory of the kernel, so it starts on the swizzle's
+  // 1024-byte boundary, and the compiler sees shared addresses throughout
+  extern __shared__ __align__(1024) unsigned char smem[];
+  const int nk = p.kp / BK;
+  const int a_rows = p.resident ? TM * p.tiles_m : TM;
+  const uint32_t a_slice = MAX_S * a_rows * BK, b_slice = MAX_S * TN * BK;
+  const uint32_t stage_bytes = (p.resident ? 0 : a_slice) + b_slice;
+  unsigned char* ring = smem;
+  unsigned char* a_res = ring + p.stages * stage_bytes;  // resident A: nk slices
+  double* x_out = reinterpret_cast<double*>(a_res + (p.resident ? nk * a_slice : 0));
+  uint64_t* bars = reinterpret_cast<uint64_t*>(reinterpret_cast<unsigned char*>(x_out) + X_BYTES);
+  const uint32_t full0 = smem_u32(bars), empty0 = smem_u32(bars + MAX_STAGES);
+  const uint32_t a_full = smem_u32(bars + 2 * MAX_STAGES);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < p.stages; ++i) {
+      mbar_init(full0 + 8 * i, 1);
+      mbar_init(empty0 + 8 * i, 2 * 4);  // one arrival per consumer warp
+    }
+    mbar_init(a_full, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  const dim3 grid(static_cast<unsigned>((n + BN - 1) / BN), static_cast<unsigned>((m + BM - 1) / BM));
-  ozaki_gemm_kernel<S><<<grid, GNT, smem, stream>>>(A, ea, B, eb, C, m, n, kp, w);
-  return cudaGetLastError();
+  __syncthreads();
+
+  if (warp >= 2 * 4) {  // the producer warpgroup: one thread issues every copy
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
+    if (warp != 2 * 4 || lane != 0) return;
+    if (p.resident) {
+      mbar_expect_tx(a_full, nk * a_slice);
+      for (int kk = 0; kk < nk; ++kk) tma_load(smem_u32(a_res + kk * a_slice), &map_a, kk * BK, 0, a_full);
+    }
+    const int items = p.resident ? p.tiles_n : p.tiles_m * p.tiles_n;
+    int64_t c = 0;
+    for (int item = blockIdx.x; item < items; item += gridDim.x) {
+      const int mt = p.resident ? 0 : item / p.tiles_n, nt = p.resident ? item : item % p.tiles_n;
+      for (int kk = 0; kk < nk; ++kk, ++c) {
+        const int slot = static_cast<int>(c % p.stages);
+        mbar_wait(empty0 + 8 * slot, static_cast<uint32_t>(((c / p.stages) & 1) ^ 1));
+        const uint32_t full = full0 + 8 * slot;
+        unsigned char* st = ring + slot * stage_bytes;
+        mbar_expect_tx(full, stage_bytes);
+        if (!p.resident) tma_load(smem_u32(st), &map_a, kk * BK, mt * TM, full);
+        tma_load(smem_u32(st + (p.resident ? 0 : a_slice)), &map_b, kk * BK, nt * TN, full);
+      }
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+  if (warp >= 4)
+    consume<FAST, true>(p, ring, a_res, x_out, full0, empty0, a_full);
+  else
+    consume<FAST, false>(p, ring, a_res, x_out, full0, empty0, a_full);
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled of libcuda, found through the runtime's entry-point query (no -lcuda)
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault,
+                                         &q) != cudaSuccess || q != cudaDriverEntryPointSuccess)
+      return nullptr;
+#else
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &q) !=
+            cudaSuccess || q != cudaDriverEntryPointSuccess)
+      return nullptr;
+#endif
+    fn = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  return fn;
+}
+
+// a (s, rows, kp) int8 plane tensor read in boxes {BK, box_rows, s}
+bool plane_map(CUtensorMap* map, const int8_t* planes, int64_t rows, int kp, int s, int box_rows) {
+  EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return false;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(kp), static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(s)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(kp),
+                                 static_cast<cuuint64_t>(rows) * static_cast<cuuint64_t>(kp)};
+  // MAX_S planes per box: those past s are out of bounds and come in as zeros
+  const cuuint32_t box[3] = {BK, static_cast<cuuint32_t>(box_rows), MAX_S};
+  const cuuint32_t estr[3] = {1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, const_cast<int8_t*>(planes), dims, strides, box,
+             estr, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_32B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// the layout of ozaki_gemm_kernel's shared memory: the ring, resident A (all
+// tiles_m row tiles), the handoff, the staged output tile, the mbarriers
+int64_t gemm_smem_bytes(int resident, int stages, int kp, int tiles_m) {
+  const int64_t a_slice = MAX_S * (resident ? TM * tiles_m : TM) * BK, b_slice = MAX_S * TN * BK;
+  const int64_t ring = stages * ((resident ? 0 : a_slice) + b_slice);
+  const int64_t a_res = resident ? (kp / BK) * a_slice : 0;
+  return ring + a_res + X_BYTES + (2 * MAX_STAGES + 1) * 8;
 }
 
 }  // namespace
@@ -350,24 +632,85 @@ int tpeps_ozaki_split(const double* X, int8_t* planes, double* e, int64_t rows, 
   return cudaGetLastError();
 }
 
-// C (m, n) f64 row-major from A's planes (s, m, kp) and B's (s, n, kp)
+// C (m, n) f64 row-major from A's planes (s, m, kp) and B's (s, n, kp),
+// with the recombination table of tpeps_torch/kernels/ozaki.py:
+// recombination_table: kind[8] per group g = t - 2, coef = scale[8],
+// factor[8], tail_scale; at s = 8, w = 7 the kernel has the table compiled
+// in, and this one must match it.  The launcher plans the grid: 64 x 64
+// tiles; A's planes resident in shared memory where A has at most two row
+// tiles and they fit RESIDENT_MAX (the layer products, whose B then streams
+// from device memory once, each of its tiles used for every row tile); as
+// many stages as fit, up to MAX_STAGES (resident, every k slice of an n tile
+// at once); one persistent block per SM, at most one per work item.
 int tpeps_ozaki_gemm(const int8_t* A, const double* ea, const int8_t* B, const double* eb,
-                     double* C, int64_t m, int64_t n, int kp, int s, int w, void* stream) {
+                     double* C, int64_t m, int64_t n, int kp, int s, int w, const int* kind,
+                     const double* coef, void* stream) {
   if (m <= 0 || n <= 0) return cudaSuccess;
-  if (kp % BK != 0 || w < 1 || w > 7 || (n + BN - 1) / BN > 0x7fffffff || (m + BM - 1) / BM > 65535)
+  const int64_t tiles_m = (m + TM - 1) / TM, tiles_n = (n + TN - 1) / TN;
+  if (kp <= 0 || kp % BK != 0 || s < 1 || s > MAX_S || w < 1 || w > 7 ||
+      tiles_m * tiles_n > 0x7fffffff ||
+      (reinterpret_cast<uintptr_t>(A) | reinterpret_cast<uintptr_t>(B)) % 16 != 0)
     return cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (s) {
-    case 1: return launch_gemm<1>(A, ea, B, eb, C, m, n, kp, w, st);
-    case 2: return launch_gemm<2>(A, ea, B, eb, C, m, n, kp, w, st);
-    case 3: return launch_gemm<3>(A, ea, B, eb, C, m, n, kp, w, st);
-    case 4: return launch_gemm<4>(A, ea, B, eb, C, m, n, kp, w, st);
-    case 5: return launch_gemm<5>(A, ea, B, eb, C, m, n, kp, w, st);
-    case 6: return launch_gemm<6>(A, ea, B, eb, C, m, n, kp, w, st);
-    case 7: return launch_gemm<7>(A, ea, B, eb, C, m, n, kp, w, st);
-    case 8: return launch_gemm<8>(A, ea, B, eb, C, m, n, kp, w, st);
-    default: return cudaErrorInvalidValue;
+  const int nk = kp / BK;
+  const int resident =
+      tiles_m <= 2 && static_cast<int64_t>(nk) * MAX_S * TM * tiles_m * BK <= RESIDENT_MAX;
+  const int64_t stage = (resident ? 0 : MAX_S * TM * BK) + MAX_S * TN * BK;
+  const int64_t fit =
+      (SMEM_LIMIT - gemm_smem_bytes(resident, 0, kp, static_cast<int>(tiles_m))) / stage;
+  const int stages = static_cast<int>(fit < MAX_STAGES ? fit : MAX_STAGES);
+  if (stages < (resident ? nk : 2)) return cudaErrorInvalidValue;  // no plan fits
+  const int64_t smem = gemm_smem_bytes(resident, stages, kp, static_cast<int>(tiles_m));
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  static bool attr_set = false;  // set once, outside any later stream capture
+  if (!attr_set) {
+    for (auto kernel : {ozaki_gemm_kernel<true>, ozaki_gemm_kernel<false>}) {
+      cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           SMEM_LIMIT);
+      if (e != cudaSuccess) return e;
+    }
+    attr_set = true;
   }
+  CUtensorMap map_a, map_b;
+  if (!plane_map(&map_a, A, m, kp, s, static_cast<int>(resident ? TM * tiles_m : TM)) ||
+      !plane_map(&map_b, B, n, kp, s, TN))
+    return cudaErrorInvalidValue;
+  GemmParams p;
+  p.ea = ea;
+  p.eb = eb;
+  p.C = C;
+  p.m = m;
+  p.n = n;
+  p.kp = kp;
+  p.resident = resident;
+  p.stages = stages;
+  p.tiles_m = static_cast<int>(tiles_m);
+  p.tiles_n = static_cast<int>(tiles_n);
+  for (int g = 0; g < MAX_S; ++g) {
+    p.rc.kind[g] = kind[g];
+    p.rc.scale[g] = coef[g];
+    p.rc.factor[g] = static_cast<float>(coef[MAX_S + g]);
+  }
+  p.rc.tail_scale = coef[2 * MAX_S];
+  p.rc.has_tail = coef[2 * MAX_S] != 0.0;
+  const int64_t items = resident ? tiles_n : tiles_m * tiles_n;
+  const int blocks = static_cast<int>(sms < items ? sms : items);
+  const bool fast = s == MAX_S && w == 7;
+  if (fast) {  // the table must be the one compiled into the fast instance
+    const int k8[MAX_S] = {1, 1, 1, 1, 3, 3, 3, 2};
+    const double c8[2 * MAX_S + 1] = {0x1p-14, 0x1p-21, 0x1p-28, 0x1p-35, 0, 0, 0, 0,
+                                      0, 0, 0, 0, 0x1p-7, 0x1p-7, 0x1p-7, 0, 0x1p-42};
+    for (int g = 0; g < MAX_S; ++g)
+      if (kind[g] != k8[g]) return cudaErrorInvalidValue;
+    for (int g = 0; g < 2 * MAX_S + 1; ++g)
+      if (coef[g] != c8[g]) return cudaErrorInvalidValue;
+  }
+  auto kernel = fast ? ozaki_gemm_kernel<true> : ozaki_gemm_kernel<false>;
+  kernel<<<blocks, GEMM_THREADS, static_cast<size_t>(smem), static_cast<cudaStream_t>(stream)>>>(
+      map_a, map_b, p);
+  return cudaGetLastError();
 }
 
 }  // extern "C"

@@ -35,9 +35,8 @@ _SIGNATURES = {
     "tpeps_layer_contract_f32": (_vp, _vp, _vp, _vp, _i, _vp),
     "tpeps_corner_apply_f64": (_vp, _vp, _vp, _i, _i, _vp),
     "tpeps_corner_apply_f32": (_vp, _vp, _vp, _i, _i, _vp),
-    "tpeps_gram_f64": (_vp, _vp, _vp, _vp, _i, _i, _i, _d, _vp),
-    "tpeps_gram_f32": (_vp, _vp, _vp, _vp, _i, _i, _i, _d, _vp),
-    "tpeps_gram_splits": (_i,),
+    "tpeps_gram_clusters_f64": (_vp, _vp, _vp, _vp, _i, _vp, _i, _i, _i, _d, _i, _vp),
+    "tpeps_gram_clusters_f32": (_vp, _vp, _vp, _vp, _i, _vp, _i, _i, _i, _d, _i, _vp),
     "tpeps_trsm_right_lower_h_f64": (_vp, _vp, _vp, _i, _i, _vp),
     "tpeps_trsm_right_lower_h_f32": (_vp, _vp, _vp, _i, _i, _vp),
     "tpeps_trsm_right_lower_f64": (_vp, _vp, _vp, _i, _i, _vp),
@@ -48,7 +47,7 @@ _SIGNATURES = {
     "tpeps_eigh_small_f64": (_vp, _vp, _vp, _vp, _vp, _i, _i, _vp),
     "tpeps_ozaki_max_slices": (),
     "tpeps_ozaki_split": (_vp, _vp, _vp, _i64, _i, _i, _i, _i, _i, _vp),
-    "tpeps_ozaki_gemm": (_vp, _vp, _vp, _vp, _vp, _i64, _i64, _i, _i, _i, _vp),
+    "tpeps_ozaki_gemm": (_vp, _vp, _vp, _vp, _vp, _i64, _i64, _i, _i, _i, _vp, _vp, _vp),
     "tpeps_ctm_commit_f64": (_vp,) * 14 + (_i64, _i64, _i64, _i64, _i, _i, _vp),
     "tpeps_ctm_commit_f32": (_vp,) * 14 + (_i64, _i64, _i64, _i64, _i, _i, _vp),
     "tpeps_ctm_commit_partials": (),
@@ -92,7 +91,9 @@ class KernelLibrary:
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
         for name, argtypes in (("tpeps_polar_smem", (_i, _i)),
-                               ("tpeps_eigh_small_rotations", (_i, _i))):
+                               ("tpeps_eigh_small_rotations", (_i, _i)),
+                               ("tpeps_gram_scratch_f64", (_i, _i, _i, _i)),
+                               ("tpeps_gram_scratch_f32", (_i, _i, _i, _i))):
             getattr(self.cdll, name).restype = ctypes.c_int64
             getattr(self.cdll, name).argtypes = argtypes
         self.cdll.tpeps_cuda_error_string.restype = ctypes.c_char_p

@@ -10,6 +10,8 @@ from . import LAUNCHES, require_contiguous, route, stream_of, suffix
 from .build import library
 
 _SMEM_LIMIT = 232448  # dynamic shared memory a block may use on sm_90
+GRAM_COUNTERS = 4096  # the Gram's arrival counters per device (csrc/cholqr.cu plans their use)
+_COUNTERS: dict = {}
 
 
 def gram_ridge_twin(P, eps: float = 0.0):
@@ -24,17 +26,33 @@ def gram_twin(A, B):
     return A.mH @ B
 
 
-def _launch_gram(name: str, A, B, eps: float):
+def _counters(device):
+    """The device's arrival counters: zero when made, and every launch
+    leaves them zero again."""
+    c = _COUNTERS.get(device)
+    if c is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("gram: call it once on this device before capturing a graph")
+        c = _COUNTERS[device] = torch.zeros(GRAM_COUNTERS, dtype=torch.int32, device=device)
+    return c
+
+
+def _launch_gram(name: str, A, B, eps: float, sym: bool):
+    """One launch of the Gram kernel; its launcher plans the grid, and says
+    how much scratch the plan needs on this card."""
     n, ka = A.shape
     kb = B.shape[1]
     lib = library()
-    splits = lib.cdll.tpeps_gram_splits(n)
-    part = torch.empty((splits, ka, kb), dtype=A.dtype, device=A.device)
-    G = torch.empty((ka, kb), dtype=A.dtype, device=A.device)
+    sfx = suffix(A)
+    counters = _counters(A.device)
     with torch.cuda.device(A.device):
-        err = getattr(lib.cdll, f"tpeps_gram_{suffix(A)}")(
-            A.data_ptr(), B.data_ptr(), part.data_ptr(), G.data_ptr(), n, ka, kb, float(eps),
-            stream_of(A))
+        scratch = getattr(lib.cdll, f"tpeps_gram_scratch_{sfx}")(n, ka, kb, int(sym))
+        lib.check(int(-min(scratch, 0)), name)
+        part = torch.empty(max(scratch, 1), dtype=A.dtype, device=A.device)
+        G = torch.empty((ka, kb), dtype=A.dtype, device=A.device)
+        err = getattr(lib.cdll, f"tpeps_gram_clusters_{sfx}")(
+            A.data_ptr(), B.data_ptr(), part.data_ptr(), counters.data_ptr(), counters.numel(),
+            G.data_ptr(), n, ka, kb, float(eps), int(sym), stream_of(A))
     lib.check(err, name)
     LAUNCHES[name] += 1
     return G
@@ -47,7 +65,7 @@ def gram_ridge(P, eps: float = 0.0):
     if not route("gram_ridge", P):
         return gram_ridge_twin(P, eps)
     require_contiguous("gram_ridge", P=P)
-    return _launch_gram("gram_ridge", P, P, eps)
+    return _launch_gram("gram_ridge", P, P, eps, True)
 
 
 def gram(A, B):
@@ -57,7 +75,7 @@ def gram(A, B):
     if not route("gram", A, B):
         return gram_twin(A, B)
     require_contiguous("gram", A=A, B=B)
-    return _launch_gram("gram", A, B, 0.0)
+    return _launch_gram("gram", A, B, 0.0, False)
 
 
 def trsm_right_lower_h_twin(L, P):

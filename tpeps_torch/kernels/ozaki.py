@@ -12,13 +12,21 @@ are float64 powers of two, one per row.
 
 from __future__ import annotations
 
+import collections
+import ctypes
+import functools
+
 import torch
 
 from . import LAUNCHES, require_contiguous, route, stream_of
 from .build import library
 
-KP_ALIGN = 32  # the IMMA's k depth; the planes' k is padded to it
+KP_ALIGN = 32  # the int8 wgmma's k depth; the planes' k is padded to it
 TAIL_BITS = 42  # digit groups with total * w >= 42 recombine in float32
+MAX_SLICES = 8  # the kernel's group sums per output: totals 2 .. MAX_SLICES + 1
+# launches of ozaki_gemm by (s, m, kp, n), counted beside LAUNCHES["ozaki_gemm"]
+# for eager calls (a CUDA graph's capture counts here once, its replays not)
+SHAPE_LAUNCHES: collections.Counter = collections.Counter()
 
 
 def padded_k(k: int) -> int:
@@ -134,6 +142,39 @@ def ozaki_gemm_twin(Ap, ea, Bp, eb, w: int):
     return out * ea[:, None] * eb[None, :]
 
 
+def recombination_table(s: int, w: int):
+    """``_accumulate``'s recombination steps as the kernel reads them, per
+    group ``g = total - 2``: ``kind[g]`` (0 absent, 1 float64 group, 2 first
+    float32 tail group, 3 tail group), ``scale[g] = 2^(-total w)`` (kind 1),
+    ``factor[g] = 2^((total - t_prev) w)`` (kind 3) and the tail's final
+    scale ``2^(-t_prev w)`` (0.0 without a tail), the same Python floats as
+    :func:`ozaki_gemm_twin` multiplies by."""
+    if not 1 <= s <= MAX_SLICES:
+        raise ValueError(f"recombination_table: slices={s} must be in [1, {MAX_SLICES}]")
+    kind, scale, factor = [0] * MAX_SLICES, [0.0] * MAX_SLICES, [0.0] * MAX_SLICES
+    t_prev = None
+    for total in range(s + 1, 1, -1):
+        g = total - 2
+        if total * w >= TAIL_BITS:
+            if t_prev is None:
+                kind[g] = 2
+            else:
+                kind[g], factor[g] = 3, float(2.0 ** ((total - t_prev) * w))
+            t_prev = total
+        else:
+            kind[g], scale[g] = 1, float(2.0 ** (-total * w))
+    tail_scale = float(2.0 ** (-t_prev * w)) if t_prev is not None else 0.0
+    return kind, scale, factor, tail_scale
+
+
+@functools.lru_cache(maxsize=64)
+def _table_c(s: int, w: int):
+    """:func:`recombination_table` as the C arrays the launcher reads."""
+    kind, scale, factor, tail_scale = recombination_table(s, w)
+    return ((ctypes.c_int * MAX_SLICES)(*kind),
+            (ctypes.c_double * (2 * MAX_SLICES + 1))(*scale, *factor, tail_scale))
+
+
 def ozaki_gemm(Ap, ea, Bp, eb, w: int = 7):
     """``A @ B`` (m, n) float64 from A's digit planes ``(s, m, kp)`` and B's
     ``(s, n, kp)`` (as :func:`ozaki_split` writes them) and their exponents."""
@@ -151,13 +192,17 @@ def ozaki_gemm(Ap, ea, Bp, eb, w: int = 7):
     if not route("ozaki_gemm", Ap, ea, Bp, eb, check_dtype=False):
         return ozaki_gemm_twin(Ap, ea, Bp, eb, w)
     require_contiguous("ozaki_gemm", Ap=Ap, ea=ea, Bp=Bp, eb=eb)
+    kind_c, coef_c = _table_c(s, w)
     m, n, kp = Ap.shape[1], Bp.shape[1], Ap.shape[2]
     C = torch.empty((m, n), dtype=torch.float64, device=Ap.device)
+    if m == 0 or n == 0:
+        return C
     lib = library()
     with torch.cuda.device(Ap.device):
         err = lib.cdll.tpeps_ozaki_gemm(Ap.data_ptr(), ea.data_ptr(), Bp.data_ptr(),
-                                         eb.data_ptr(), C.data_ptr(), m, n, kp, s, w,
-                                         stream_of(Ap))
+                                         eb.data_ptr(), C.data_ptr(), m, n, kp, s, w, kind_c,
+                                         coef_c, stream_of(Ap))
     lib.check(err, "ozaki_gemm")
     LAUNCHES["ozaki_gemm"] += 1
+    SHAPE_LAUNCHES[s, m, kp, n] += 1
     return C
