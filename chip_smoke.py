@@ -5,7 +5,7 @@ Usage: ``python3 chip_smoke.py`` from the repository root, on a machine
 with one CUDA card and ``nvcc`` (CUDA_HOME, PATH or the toolkit's default
 prefix).  It needs no network and no JAX.  ``python3 chip_smoke.py --ablate``
 runs phases 0 and 1 and then only :func:`ablate`, the timing breakdown of
-the K3 Gram and K7 ``ozaki_gemm`` kernels.
+K3's Gram and solves, K7's ``ozaki_gemm`` and ``eigh_small``.
 
 Phases (any failed check exits non-zero; there is no CPU fallback):
 
@@ -28,6 +28,12 @@ Phases (any failed check exits non-zero; there is no CPU fallback):
    one: against the twins, two calls bit-identical, timed against
    ``torch.matmul`` at the same precision, both in CUDA graphs (device
    time; an eager call to a ~30 us kernel is mostly host launch cost).
+   K3's two solves at k = chi and chi + 8 on the L of an orthonormal basis
+   (against the twins, two calls bit-identical) and on the L of
+   CholeskyQR2's first pass on M2 P, on the cold start (k = chi) and on a
+   graded basis of cond 1e7 (:func:`solve_checks`: kernel and twin each to
+   a normwise backward error <= 1e-14 in float64, 1e-6 in float32, the
+   kernel to the twin in forward error <= 2 k u cond(L)).
 3. the forward slice: the D=7, chi=147 float64 state of the benchmark case
    (RandomState(0), C4v-symmetrized), init_env("CTMRG"), run_ctmrg
    (max_iter=48, conv_tol=1e-8, n_power=2), energy_1x1_lowmem (j2=0.3)
@@ -133,9 +139,11 @@ Phases (any failed check exits non-zero; there is no CPU fallback):
    (> 0) next to |g|.
 
 Phase 2 also holds the kernels of the large-D slice against their twins at
-its shapes: ``eigh_small`` on Rayleigh-Ritz matrices of the D=7 path and on
-a dense random matrix of its largest k, 169 (eigenvalues <= 1e-12
-relative, residual and orthogonality <= 1e-12), ``ozaki_split`` on
+its shapes: ``eigh_small`` on the Rayleigh-Ritz H of moves 4 and 31 of the
+D=7 path, at subspace_eigh's width (155), on a dense 64 (the D=2 SYMEIG
+shape), on an H with exactly degenerate pairs and on a dense random matrix
+of its largest k, 169 (converged, eigenvalues <= 1e-12 relative, residual
+and orthogonality <= 1e-12, two calls bit-identical), ``ozaki_split`` on
 the corner M2 (7203 x 7203), a basis P (7203 x 147) and a layer's operands
 (98 x 49, 49 x 1.06M) (digit planes and exponents bit-identical),
 ``ozaki_gemm`` bit-identical to its twin (``torch.equal``) at every product
@@ -173,6 +181,8 @@ D, CHI, D_SMALL, CHI_SMALL = 7, 147, 2, 16
 MAX_ITER, CONV_TOL, N_POWER = 48, 1e-8, 2
 J1, J2 = 1.0, 0.3
 TOL = {torch.float64: 1e-12, torch.float32: 1e-5}
+# the solves' normwise backward error on ill-conditioned L (solve_checks)
+BWD_TOL = {torch.float64: 1e-14, torch.float32: 1e-6}
 TWIN_MOVES, TWIN_SPEC_TOL = 4, 1e-8
 E_SMALL_TOL = 1e-10
 TRAIN_EPOCHS, TRAIN_MAX_ITER, TRAIN_ADJ_ITER = 2, 48, 24
@@ -441,6 +451,15 @@ def well_conditioned(k, gen, dtype, dev):
     return ((q() * s) @ q()).to(dtype).contiguous()
 
 
+def graded(n, k, cond, gen, dev):
+    """A tall float64 ``Q1 diag(s) Q2^T`` (n, k) with singular values
+    log-spaced from 1 to ``1 / cond``."""
+    q = lambda m: torch.linalg.qr(torch.randn(m, k, generator=gen, device=dev,
+                                              dtype=torch.float64)).Q
+    s = torch.logspace(0, -math.log10(cond), k, dtype=torch.float64, device=dev)
+    return ((q(n) * s) @ q(k).mT).contiguous()
+
+
 def time_case(rec, name, kern, twin, lib, nb, ops, peak):
     """Kernel, twin and library times (kernel, twin, twin, kernel: a drift of
     clocks hits both alike), the bound, and the kernel's max abs error
@@ -458,6 +477,52 @@ def time_case(rec, name, kern, twin, lib, nb, ops, peak):
     lib_txt = f", library {rec[name]['library_ms']:.3f} ms" if lib is not None else ""
     print(f"  {name}: kernel {rec[name]['ms']:.3f} ms, twin {rec[name]['plain_ms']:.3f} ms"
           f"{lib_txt}, bound {bound_ms:.4f} ms ({bound_by}), max abs err {err:.2e}")
+
+
+def solve_orthonormal(L, P, tol, tag) -> None:
+    """K3's two solves on the L of an orthonormal basis (near I) against the
+    twins to ``tol``; two calls bit-identical."""
+    from tpeps_torch.kernels import cholqr
+
+    for name in ("trsm_right_lower_h", "trsm_right_lower"):
+        kern, twin = getattr(cholqr, name), getattr(cholqr, f"{name}_twin")
+        Q1, Q2 = kern(L, P), kern(L, P)
+        e = rel_err(Q1, twin(L, P))
+        check(e <= tol and torch.equal(Q1, Q2), f"K3 {name} {tag}, L of an orthonormal "
+              f"basis: rel err {e:.2e} <= {tol:.0e}, two calls bit-identical")
+
+
+def solve_checks(label, L0, P0, dtype) -> None:
+    """K3's two solves on the ``L0`` of a basis that is not orthonormal
+    (float64; rounded with ``P0`` to ``dtype``).  Kernel and twin each to a
+    backward error ``||Q L^T - P||_F / (||Q||_F ||L||_F) <= BWD_TOL``
+    (``X L - B`` for the backward solve; in float64), the kernel to the twin
+    in forward error
+    ``||Q - Q_twin||_F / ||Q_twin||_F <= 2 k u cond(L)``: each is backward
+    stable to about k u, and a backward error e moves the solution by up to
+    cond(L) e; two calls bit-identical."""
+    from tpeps_torch.kernels import cholqr
+
+    L, P = L0.to(dtype).contiguous(), P0.to(dtype).contiguous()
+    k, u = L.shape[0], torch.finfo(dtype).eps / 2
+    cond = float(torch.linalg.cond(L.double()))
+    fwd_tol = 2 * k * u * cond
+    tag = str(dtype).replace("torch.", "")
+    for name, lhs in (("trsm_right_lower_h", L.mT), ("trsm_right_lower", L)):
+        kern, twin = getattr(cholqr, name), getattr(cholqr, f"{name}_twin")
+        Q1, Q2, Qt = kern(L, P), kern(L, P), twin(L, P)
+
+        def bwd(Q):
+            R = Q.double() @ lhs.double() - P.double()
+            return float(torch.linalg.norm(R) / (torch.linalg.norm(Q.double())
+                                                 * torch.linalg.norm(L.double())))
+        b_k, b_t = bwd(Q1), bwd(Qt)
+        e = float(torch.linalg.norm((Q1 - Qt).double()) / torch.linalg.norm(Qt.double()))
+        check(b_k <= BWD_TOL[dtype] and b_t <= BWD_TOL[dtype] and e <= fwd_tol
+              and torch.equal(Q1, Q2),
+              f"K3 {name} {tag}, L of {label} (cond {cond:.2e}): backward error kernel "
+              f"{b_k:.2e}, twin {b_t:.2e} <= {BWD_TOL[dtype]:.0e}; forward error against the twin "
+              f"{e:.2e} <= 2 k u cond(L) = {fwd_tol:.2e}; two calls bit-identical")
 
 
 def phase2(dev) -> dict:
@@ -497,15 +562,29 @@ def phase2(dev) -> dict:
             check(e <= tol, f"K3 gram_ridge {tag}: rel err {e:.2e} <= {tol:.0e}")
             L = torch.linalg.cholesky(G).contiguous()
             Pm = M2 @ P  # a realistic right-hand side
-            e = rel_err(cholqr.trsm_right_lower_h(L, Pm), cholqr.trsm_right_lower_h_twin(L, Pm))
-            check(e <= tol, f"K3 trsm_right_lower_h {tag}: rel err {e:.2e} <= {tol:.0e}")
-            e = rel_err(cholqr.trsm_right_lower(L, Pm), cholqr.trsm_right_lower_twin(L, Pm))
-            check(e <= tol, f"K3 trsm_right_lower {tag}: rel err {e:.2e} <= {tol:.0e}")
+            solve_orthonormal(L, Pm, tol, tag)
+            # the L of cholesky_qr2's first pass, on M2 P (P orthonormal, M2 P
+            # not), on the cold start (M2 times cold_start_basis) and on a
+            # graded basis (cond 1e7), with the path's 1e-12 ridge, built in
+            # float64 (rounded for float32), the right-hand side the basis;
+            # the first pass also at chi + 8 (below)
+            if dtype == torch.float64:
+                ill, gen_g = {}, torch.Generator(device=dev).manual_seed(2)
+                for label, P0 in (("first pass on M2 P", M2 @ P),
+                                  ("cold start", M2 @ mf.cold_start_basis(CHI * D * D, CHI,
+                                                                           dtype, dev)),
+                                  ("graded basis", graded(CHI * D * D, CHI, 1e7, gen_g, dev)),
+                                  (f"graded basis, k={CHI + 8}",
+                                   graded(CHI * D * D, CHI + 8, 1e7, gen_g, dev))):
+                    P0 = P0.contiguous()
+                    ill[label] = (torch.linalg.cholesky(cholqr.gram_ridge_twin(P0, 1e-12)), P0)
             e = rel_err(cholqr.gram(Pm, P), cholqr.gram_twin(Pm, P))
             check(e <= tol, f"K3 gram (two operands) {tag}: rel err {e:.2e} <= {tol:.0e}")
-            # both Grams at the move's two widths (chi, and chi + 8 in
-            # subspace_eigh): against the twins, two calls bit-identical,
-            # timed against torch.matmul at the same precision.  gram_ridge
+            # both Grams and the solves at the move's two widths (chi, and chi
+            # + 8 in subspace_eigh): against the twins, two calls
+            # bit-identical, the Grams timed against torch.matmul at the same
+            # precision.  The solves at chi + 8 as at chi above: on the L of
+            # an orthonormal basis and of the first pass on M2 P.  gram_ridge
             # on an orthonormal basis and on M2 P, which is not (as
             # cholesky_qr2's first pass sees it: every tile of G, the
             # mirrored ones too, of the size of the largest), with the
@@ -514,6 +593,12 @@ def phase2(dev) -> dict:
                 Pk = torch.linalg.qr(torch.randn(CHI * D * D, k, generator=gen, device=dev,
                                                  dtype=torch.float64)).Q.to(dtype).contiguous()
                 Qk = (M2 @ Pk).contiguous()
+                if k != CHI:
+                    Lk = torch.linalg.cholesky(cholqr.gram_ridge_twin(Pk, 1e-12)).contiguous()
+                    solve_orthonormal(Lk, Qk, tol, f"{tag} k={k}")
+                    if dtype == torch.float64:
+                        ill[f"first pass on M2 P, k={k}"] = (
+                            torch.linalg.cholesky(cholqr.gram_ridge_twin(Qk, 1e-12)), Qk)
                 for name, kern, twin in (
                         ("gram_ridge orthonormal", lambda: cholqr.gram_ridge(Pk, 1e-12),
                          lambda: cholqr.gram_ridge_twin(Pk, 1e-12)),
@@ -537,6 +622,8 @@ def phase2(dev) -> dict:
                     gram_shapes.setdefault(name, {})[f"{tag} k={k}"] = {
                         "ms": ms, "matmul_ms": lib_ms}
                 del Pk, Qk
+            for label, (L0, P0) in ill.items():
+                solve_checks(label, L0, P0, dtype)
             # K6's overlaps come from the float64 path, rounded for float32
             if dtype == torch.float64:
                 overlaps = (near_unitary_overlap(a, env.C, T_int),
@@ -950,35 +1037,52 @@ def phase2_large_d(dev) -> dict:
     gen = torch.Generator(device=dev).manual_seed(2)
     info = torch.zeros(2, dtype=torch.int32, device=dev)
     with torch.inference_mode():
-        # eigh_small on the Rayleigh-Ritz matrices of an early and a late move
-        Hs = {n: rayleigh_ritz_H(a, env.C, T_int, n) for n in (3, 30)}
-        for n, H in Hs.items():
+        # eigh_small on the Rayleigh-Ritz H of an early and a late move, at
+        # subspace_eigh's width (chi + 8: H after one power step from a random
+        # basis), on a dense 64 (the D=2 SYMEIG shape), on an H with exactly
+        # degenerate pairs (as the C4v double layer gives) and on a dense
+        # random H of the largest k, the hardest start: converged, eigenvalues,
+        # residual and orthogonality <= 1e-12, two calls bit-identical
+        from tpeps_torch.linalg.power import cholesky_qr2
+
+        M2 = mf._c2x2_factored(a, env.C, T_int)
+        Hs = {f"H of move {n + 1}": rayleigh_ritz_H(a, env.C, T_int, n) for n in (3, 30)}
+        Pw = cholesky_qr2(M2 @ torch.randn(CHI * D * D, CHI + 8, generator=gen, device=dev,
+                                           dtype=torch.float64))
+        Hs[f"subspace_eigh's H, k={CHI + 8}"] = Pw.mT @ (M2 @ Pw)
+        del Pw
+        for kd in (64, EIGH_BIG):
+            X = torch.randn(kd, kd, generator=gen, device=dev, dtype=torch.float64)
+            Hs[f"dense k={kd}"] = X
+        U = torch.linalg.qr(torch.randn(CHI, CHI, generator=gen, device=dev,
+                                        dtype=torch.float64)).Q
+        d = torch.randn(CHI // 2 + 1, generator=gen, device=dev, dtype=torch.float64)
+        Hs[f"exact degenerate pairs, k={CHI}"] = (U * d.repeat_interleave(2)[:CHI]) @ U.mT
+        cases = {}
+        for label, H in Hs.items():
+            H = (0.5 * (H + H.mT)).contiguous()
+            Hs[label] = H
             w, V = eigh_small(H, info=info)
             sweeps, conv = info.tolist()[:2]
+            w2, V2 = eigh_small(H)
             e_w, e_r, e_o = eigh_errors(H, w, V, eigh_small_twin(H)[0])
-            check((conv == 1 or dev.type == "cpu") and max(e_w, e_r, e_o) <= tol,
-                  f"eigh_small on H of move {n + 1}: {sweeps} sweeps, converged={bool(conv)}; "
-                  f"eigenvalues rel err {e_w:.2e}, residual {e_r:.2e}, orthogonality {e_o:.2e} "
-                  f"<= {tol:.0e}")
-        H = Hs[30]
+            cases[label] = {"k": H.shape[0], "sweeps": sweeps,
+                            "ms": cuda_ms(lambda: eigh_small(H)),
+                            "torch_eigh_ms": cuda_ms(lambda: torch.linalg.eigh(H))}
+            check((conv == 1 or dev.type == "cpu") and max(e_w, e_r, e_o) <= tol
+                  and torch.equal(w, w2) and torch.equal(V, V2),
+                  f"eigh_small on {label}: {sweeps} sweeps, converged={bool(conv)}; eigenvalues "
+                  f"rel err {e_w:.2e}, residual {e_r:.2e}, orthogonality {e_o:.2e} <= {tol:.0e}; "
+                  f"two calls bit-identical; kernel {cases[label]['ms']:.3f} ms, "
+                  f"torch.linalg.eigh {cases[label]['torch_eigh_ms']:.3f} ms")
+        H = Hs["H of move 31"]
         k = CHI
         time_case(rec, "eigh_small", lambda: torch.sort(eigh_small(H)[0]).values,
                   lambda: eigh_small_twin(H)[0], lambda: torch.linalg.eigh(H),
                   nbytes(H, H) + 8 * k, 4 * k ** 3, FP64_TC)
-        print(f"  eigh_small: {int(info[0])} Jacobi sweeps on the late move's H")
-        # the largest k, on a dense random symmetric matrix: the hardest start
-        X = torch.randn(EIGH_BIG, EIGH_BIG, generator=gen, device=dev, dtype=torch.float64)
-        Hb = (0.5 * (X + X.mT)).contiguous()
-        w, V = eigh_small(Hb, info=info)
-        sweeps, conv = info.tolist()[:2]
-        e_w, e_r, e_o = eigh_errors(Hb, w, V, eigh_small_twin(Hb)[0])
-        ms_k = cuda_ms(lambda: eigh_small(Hb))
-        ms_l = cuda_ms(lambda: torch.linalg.eigh(Hb))
-        rec["eigh_small"][f"ms_dense_k{EIGH_BIG}"] = ms_k
-        check((conv == 1 or dev.type == "cpu") and max(e_w, e_r, e_o) <= tol,
-              f"eigh_small k={EIGH_BIG}, dense random H: {sweeps} sweeps, converged="
-              f"{bool(conv)}; eigenvalues rel err {e_w:.2e}, residual {e_r:.2e}, orthogonality "
-              f"{e_o:.2e} <= {tol:.0e}; kernel {ms_k:.3f} ms, torch.linalg.eigh {ms_l:.3f} ms")
+        rec["eigh_small"]["cases"] = cases
+        rec["eigh_small"][f"ms_dense_k{EIGH_BIG}"] = cases[f"dense k={EIGH_BIG}"]["ms"]
+        del Hs, H, U
 
         # ozaki_split / ozaki_gemm on the presplit corner and a basis
         M2 = mf._c2x2_factored(a, env.C, T_int)
@@ -2312,55 +2416,75 @@ def phase10(dev) -> tuple:
     return rec, counts_entry, counts_frozen, counts_train
 
 
-# what each -DTPEPS_ABLATE bit leaves out (csrc/cholqr.cu, csrc/ozaki.cu)
+# what each -DTPEPS_ABLATE bit leaves out (csrc/cholqr.cu, csrc/ozaki.cu,
+# csrc/eigh_small.cu); the copies of eigh_small.cu run every sweep (64), as
+# many as the whole kernel needed
 ABLATIONS = {"cholqr.cu": {0: "whole", 1: "no loads", 2: "no MMAs", 3: "no loads, no MMAs",
-                           4: "no k loop"},
-             "ozaki.cu": {0: "whole", 2: "no wgmmas", 8: "no recombination", 16: "no stores"}}
+                           4: "no k loop", 8: "no panel updates", 16: "no substitutions",
+                           24: "no panel updates, no substitutions",
+                           56: "no panel updates, no substitutions, no tile loads or stores"},
+             "ozaki.cu": {0: "whole", 2: "no wgmmas", 8: "no recombination", 16: "no stores"},
+             "eigh_small.cu": {0: "whole", 64: "whole, every sweep", 65: "no subproblems",
+                               66: "no H updates", 68: "no V updates",
+                               71: "no subproblems, no H or V updates",
+                               72: "every subproblem a full sweep in every round"}}
+ABLATE_KERNELS = ("gram_kernel", "ozaki_gemm_kernel", "trsm_kernel", "block_jacobi")
 
 
-def ablate() -> dict:
-    """Where the time of K3's Gram and K7's ``ozaki_gemm`` goes: each source
-    built again with one part of its kernel left out (``-DTPEPS_ABLATE``,
-    one nvcc each, all started together), each copy's ptxas registers, and
-    each called through its C entry on the same seeded inputs and timed
-    side by side (:func:`graph_ms`, the smaller of two means, the copies in
-    turn and then in reverse).  The Gram at k = chi in f64, ``gram`` and
-    ``gram_ridge``; ``ozaki_gemm`` at the sliced and the ket layers and at
-    M2 P, beside FP64 ``torch.matmul``.  Run by ``chip_smoke.py --ablate``."""
+def ablate(parent=None) -> dict:
+    """Where the time of K3's Gram and solves, K7's ``ozaki_gemm`` and
+    ``eigh_small`` goes: each source built again with one part of its
+    kernel left out (``-DTPEPS_ABLATE``, one nvcc each, all started
+    together), each copy's ptxas registers, and each called through its C
+    entry on the same seeded inputs and timed side by side (:func:`graph_ms`,
+    the smaller of two means, the copies in turn and then in reverse).  The
+    Gram at k = chi in f64, ``gram`` and ``gram_ridge``; ``ozaki_gemm`` at the
+    sliced and the ket layers and at M2 P, beside FP64 ``torch.matmul``; the
+    solves at n = chi D^2 and k = chi, chi + 8 in f64 and f32 beside
+    ``torch.linalg.solve_triangular``; ``eigh_small`` on the Rayleigh-Ritz H of
+    moves 4 and 31 of the D=7 path and on dense random H of k = 169 and 64
+    beside ``torch.linalg.eigh``.  With ``parent``, the root of another
+    checkout, its ``cholqr.cu`` is built too and its solves timed first and
+    last in the same turns (parent, change, change, parent).  Run by
+    ``chip_smoke.py --ablate [--parent DIR]``."""
     import ctypes
 
     from tpeps_torch.kernels import build as kb
     from tpeps_torch.kernels import ozaki
 
-    print("== ablation: K3 gram and K7 ozaki_gemm with parts left out", flush=True)
+    print("== ablation: K3 gram and solves, K7 ozaki_gemm, eigh_small with parts left out",
+          flush=True)
     dev = torch.device("cuda", 0)
     out_dir = kb.BUILD_DIR / "ablate"
     out_dir.mkdir(parents=True, exist_ok=True)
     nvcc, procs = kb.find_nvcc(), {}
+    builds = {(src, bits): (f"-DTPEPS_ABLATE={bits}", label, kb.CSRC_DIR / src)
+              for src, variants in ABLATIONS.items() for bits, label in variants.items()}
+    if parent is not None:
+        builds["cholqr.cu", "parent"] = ("-DTPEPS_ABLATE=0", "parent",
+                                         Path(parent) / "tpeps_torch" / "csrc" / "cholqr.cu")
     try:
-        for src, variants in ABLATIONS.items():
-            for bits in variants:
-                so = out_dir / f"{Path(src).stem}_{bits}.so"
-                cmd = [nvcc, *kb.NVCC_FLAGS, f"-DTPEPS_ABLATE={bits}", "-shared",
-                       str(kb.CSRC_DIR / src), "-o", str(so)]
-                procs[src, bits] = (so, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                                         stderr=subprocess.STDOUT, text=True))
+        for (src, key), (flag, _, path) in builds.items():
+            so = out_dir / f"{Path(src).stem}_{key}.so"
+            cmd = [nvcc, *kb.NVCC_FLAGS, flag, "-shared", str(path), "-o", str(so)]
+            procs[src, key] = (so, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                    stderr=subprocess.STDOUT, text=True))
         libs = {}
-        for (src, bits), (so, proc) in procs.items():
+        for (src, key), (so, proc) in procs.items():
             log, _ = proc.communicate()
-            check(proc.returncode == 0, f"nvcc {src} -DTPEPS_ABLATE={bits}: {log[-2000:]}")
+            check(proc.returncode == 0, f"nvcc {src} {builds[src, key][0]}: {log[-2000:]}")
             for name, line in ptxas_lines(log):
-                if name.startswith(("gram_kernel", "ozaki_gemm_kernel")):
-                    print(f"  ptxas {src} {ABLATIONS[src][bits]}: {name}: {line}")
+                if name.startswith(ABLATE_KERNELS):
+                    print(f"  ptxas {src} {builds[src, key][1]}: {name}: {line}")
             lib = ctypes.CDLL(str(so))
             for fn, argtypes in kb._SIGNATURES.items():
                 if hasattr(lib, fn):
                     getattr(lib, fn).argtypes = argtypes
-            for fn in ("tpeps_gram_scratch_f64", "tpeps_gram_scratch_f32"):
+            for fn, argtypes in kb._SIZE_QUERIES.items():
                 if hasattr(lib, fn):
                     getattr(lib, fn).restype = ctypes.c_int64
-                    getattr(lib, fn).argtypes = (ctypes.c_int,) * 4
-            libs[src, bits] = lib
+                    getattr(lib, fn).argtypes = argtypes
+            libs[src, key] = lib
     finally:
         for _, proc in procs.values():
             if proc.poll() is None:
@@ -2383,7 +2507,7 @@ def ablate() -> dict:
     G = torch.empty(k, k, dtype=torch.float64, device=dev)
     for label, X, Y, eps, sym in (("gram", A, B, 0.0, 0), ("gram_ridge", A, A, 1e-12, 1)):
         calls = {}
-        for bits in ABLATIONS["cholqr.cu"]:
+        for bits in (0, 1, 2, 3, 4):
             lib = libs["cholqr.cu", bits]
             scratch = lib.tpeps_gram_scratch_f64(n, k, k, sym)
             check(scratch >= 0, f"{label} scratch query: {scratch}")
@@ -2425,6 +2549,82 @@ def ablate() -> dict:
         print(f"  ozaki_gemm {label} {m} x {kk} by {kk} x {nn}: "
               + ", ".join(f"{v} {t:.3f} ms" for v, t in ms.items()), flush=True)
         del X, Y, Xp, Yp, C
+    rec.update(ablate_solves(libs, in_turns, stream, dev, parent is not None))
+    rec.update(ablate_eigh(libs, in_turns, stream, dev))
+    return rec
+
+
+def ablate_solves(libs, in_turns, stream, dev, with_parent) -> dict:
+    """:func:`ablate`'s part for K3's two solves (the parent's first and
+    last in the turns ``with_parent``)."""
+    rec, n = {}, CHI * D * D
+    gen = torch.Generator(device=dev).manual_seed(3)
+    for dtype in (torch.float64, torch.float32):
+        tag = str(dtype).replace("torch.", "")
+        sfx = "f64" if dtype == torch.float64 else "f32"
+        for k in (CHI, CHI + 8):
+            W = well_conditioned(k, gen, torch.float64, dev)
+            L = torch.linalg.cholesky(W.mT @ W).to(dtype).contiguous()
+            P = torch.randn(n, k, generator=gen, device=dev, dtype=dtype)
+            Q = torch.empty_like(P)
+            for fn, twin in (("tpeps_trsm_right_lower_h", lambda: torch.linalg.solve_triangular(
+                                  L.mT, P, upper=True, left=False)),
+                             ("tpeps_trsm_right_lower", lambda: torch.linalg.solve_triangular(
+                                 L, P, upper=False, left=False))):
+                calls = {}
+                for bits in (("parent",) if with_parent else ()) + (0, 8, 16, 24, 56):
+                    def call(f=getattr(libs["cholqr.cu", bits], f"{fn}_{sfx}")):
+                        err = f(L.data_ptr(), P.data_ptr(), Q.data_ptr(), n, k, stream())
+                        if err:
+                            fail(f"{fn} launch: CUDA error {err}")
+                    calls[ABLATIONS["cholqr.cu"].get(bits, bits)] = call
+                calls["torch.linalg.solve_triangular"] = twin
+                label = f"{fn[6:]} {tag} {n} x {k}"
+                rec[label] = ms = in_turns(calls, 20, 5)
+                print(f"  {label}: " + ", ".join(f"{v} {t * 1000:.1f} us" for v, t in ms.items()),
+                      flush=True)
+    return rec
+
+
+def ablate_eigh(libs, in_turns, stream, dev) -> dict:
+    """:func:`ablate`'s part for ``eigh_small``: each H first through the
+    whole kernel (its sweeps), then every copy at that many sweeps."""
+    from tpeps_torch.ctm.c4v import move_factored as mf
+    from tpeps_torch.ctm.c4v.env import init_env
+    from tpeps_torch.kernels.eigh_small import MAX_SWEEPS
+
+    rec = {}
+    a = bench_state(D, dev)
+    env = init_env(a, CHI, "CTMRG")
+    T_int = mf.to_int_layout(env.T, D)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    with torch.inference_mode():
+        cases = {f"H of move {n + 1}": rayleigh_ritz_H(a, env.C, T_int, n) for n in (3, 30)}
+    for k in (EIGH_BIG, 64):
+        X = torch.randn(k, k, generator=gen, device=dev, dtype=torch.float64)
+        cases[f"dense k={k}"] = (0.5 * (X + X.mT)).contiguous()
+    for label, H in cases.items():
+        k = H.shape[0]
+        w = torch.empty(k, dtype=H.dtype, device=dev)
+        Vt = torch.empty_like(H)
+        state = torch.zeros(2, dtype=torch.int32, device=dev)
+
+        def run(key, sweeps):
+            err = libs["eigh_small.cu", key].tpeps_eigh_small_f64(
+                H.data_ptr(), w.data_ptr(), Vt.data_ptr(), state.data_ptr(), k, sweeps, stream())
+            if err:
+                fail(f"eigh_small launch: CUDA error {err}")
+        run(0, MAX_SWEEPS)
+        sweeps, conv = state.tolist()
+        calls = {ABLATIONS["eigh_small.cu"][bits]: (lambda b=bits: run(b, MAX_SWEEPS if b == 0
+                                                                          else max(sweeps, 1)))
+                 for bits in ABLATIONS["eigh_small.cu"]}
+        ms = in_turns(calls, 3, 2)
+        # cuSOLVER's eigh does not capture into a CUDA graph: eager
+        ms["torch.linalg.eigh (eager)"] = cuda_ms(lambda: torch.linalg.eigh(H))
+        rec[f"eigh_small {label}"] = {"sweeps": sweeps, "converged": conv, **ms}
+        print(f"  eigh_small {label} (k={k}, {sweeps} sweeps, converged={bool(conv)}): "
+              + ", ".join(f"{v} {t:.3f} ms" for v, t in ms.items()), flush=True)
     return rec
 
 
@@ -2497,9 +2697,10 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    if sys.argv[1:] == ["--ablate"]:
+    if sys.argv[1:2] == ["--ablate"]:
+        parent = sys.argv[3] if sys.argv[2:3] == ["--parent"] else None
         print(phase0())
         phase1()
-        print(json.dumps({"ablation": ablate()}))
+        print(json.dumps({"ablation": ablate(parent)}))
     else:
         main()

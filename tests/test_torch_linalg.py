@@ -36,6 +36,62 @@ def _with_doublets(seed=0):
     return (U * d) @ U.T
 
 
+def _cold_start(n, k, seed):
+    """The first k columns of a symmetric M with a fast-decaying spectrum of
+    mixed signs: what the move's first CholeskyQR2 sees, M2 times
+    cold_start_basis (identity columns)."""
+    rs = np.random.RandomState(seed)
+    U = np.linalg.qr(rs.rand(n, n) - 0.5)[0]
+    lam = np.exp(-np.arange(n) / 1.5) * np.where(rs.rand(n) < 0.5, -1.0, 1.0)
+    return ((U * lam) @ U.T)[:, :k]
+
+
+def _graded(n, k, seed, cond):
+    """A tall basis with singular values log-spaced from 1 to 1/cond."""
+    rs = np.random.RandomState(seed)
+    Q1 = np.linalg.qr(rs.rand(n, k) - 0.5)[0]
+    Q2 = np.linalg.qr(rs.rand(k, k) - 0.5)[0]
+    return (Q1 * np.logspace(0, -np.log10(cond), k)) @ Q2.T
+
+
+@pytest.mark.parametrize("basis", ["cold_start", "ill_conditioned"])
+def test_cholesky_qr2_on_ill_conditioned_bases(basis):
+    """The port's CholeskyQR2 (its kernels' twins on the CPU) against JAX's
+    on the bases whose first pass has an ill-conditioned L, the kinds the
+    card's solves are held to in chip_smoke.py phase 2: the cold start (cond
+    ~7e5) and a graded basis (cond 1e5).  Both run the same backward-stable
+    algorithm, and a backward error of k u moves Q by up to cond(P) times
+    it: Q agrees to k u cond(P); both are orthonormal to 1e-11 (the 1e-12
+    ridge)."""
+    n, k = 300, 18
+    P = _cold_start(n, k, seed=5) if basis == "cold_start" else _graded(n, k, seed=6, cond=1e5)
+    Qj = np.asarray(j_power.cholesky_qr2(jnp.asarray(P)))
+    Qt = t_power.cholesky_qr2(torch.from_numpy(P)).numpy()
+    tol = k * np.finfo(np.float64).eps / 2 * np.linalg.cond(P)
+    assert np.abs(Qt - Qj).max() <= tol
+    for Q in (Qt, Qj):
+        assert np.abs(Q.T @ Q - np.eye(k)).max() <= 1e-11
+
+
+def test_eigh_desc_on_exact_degenerate_pairs():
+    """eigh_desc (the eigh_small path for a real k <= 169; its twin here)
+    against JAX's on a spectrum of exact pairs, as the C4v double layer
+    gives, and one quadruplet: eigenvalues to 1e-12, and the projector onto
+    each multiplet to 1e-10 (inside a multiplet the eigenvectors are a free
+    rotation)."""
+    vals = np.array([2.0, -1.5, 1.1, 0.7, -0.6, 0.3, 0.2])
+    d = np.concatenate([np.repeat(vals, 2), np.full(4, -0.05)])
+    U = _orthonormal(18, 18, seed=7)
+    A = (U * d) @ U.T
+    A = 0.5 * (A + A.T)
+    Dj, Uj = (np.asarray(x) for x in j_eigh.eigh_desc(jnp.asarray(A)))
+    Dt, Ut = (x.numpy() for x in t_eigh.eigh_desc(torch.from_numpy(A)))
+    np.testing.assert_allclose(Dt, Dj, rtol=0, atol=TOL)
+    for lo, hi in [(0, 2), (2, 4), (4, 6), (6, 8), (8, 10), (10, 12), (12, 14), (14, 18)]:
+        np.testing.assert_allclose(Ut[:, lo:hi] @ Ut[:, lo:hi].T, Uj[:, lo:hi] @ Uj[:, lo:hi].T,
+                                   rtol=0, atol=1e-10)
+
+
 @pytest.mark.parametrize("zero_cols", [0, 3], ids=["full_rank", "zero_columns"])
 def test_cholesky_qr2(zero_cols):
     P = _tall(60, 12, seed=1)

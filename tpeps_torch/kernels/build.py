@@ -44,7 +44,7 @@ _SIGNATURES = {
     "tpeps_polar_unitary_f64": (_vp, _vp, _vp, _vp, _i, _i, _vp),
     "tpeps_polar_vjp_f64": (_vp, _vp, _vp, _i, _vp),
     "tpeps_polar_vjp_f32": (_vp, _vp, _vp, _i, _vp),
-    "tpeps_eigh_small_f64": (_vp, _vp, _vp, _vp, _vp, _i, _i, _vp),
+    "tpeps_eigh_small_f64": (_vp, _vp, _vp, _vp, _i, _i, _vp),
     "tpeps_ozaki_max_slices": (),
     "tpeps_ozaki_split": (_vp, _vp, _vp, _i64, _i, _i, _i, _i, _i, _vp),
     "tpeps_ozaki_gemm": (_vp, _vp, _vp, _vp, _vp, _i64, _i64, _i, _i, _i, _vp, _vp, _vp),
@@ -78,6 +78,14 @@ _SIGNATURES = {
 }
 
 
+# name -> argtypes of the size queries, which return int64
+_SIZE_QUERIES = {
+    "tpeps_polar_smem": (_i, _i),
+    "tpeps_gram_scratch_f64": (_i, _i, _i, _i),
+    "tpeps_gram_scratch_f32": (_i, _i, _i, _i),
+}
+
+
 class KernelLibrary:
     """The loaded shared library plus what its build reported."""
 
@@ -90,10 +98,7 @@ class KernelLibrary:
             fn = getattr(self.cdll, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-        for name, argtypes in (("tpeps_polar_smem", (_i, _i)),
-                               ("tpeps_eigh_small_rotations", (_i, _i)),
-                               ("tpeps_gram_scratch_f64", (_i, _i, _i, _i)),
-                               ("tpeps_gram_scratch_f32", (_i, _i, _i, _i))):
+        for name, argtypes in _SIZE_QUERIES.items():
             getattr(self.cdll, name).restype = ctypes.c_int64
             getattr(self.cdll, name).argtypes = argtypes
         self.cdll.tpeps_cuda_error_string.restype = ctypes.c_char_p

@@ -9,7 +9,7 @@ import torch
 from . import LAUNCHES, require_contiguous, route, stream_of, suffix
 from .build import library
 
-_SMEM_LIMIT = 232448  # dynamic shared memory a block may use on sm_90
+TRSM_MAX_K = 256  # the solves' widest L (csrc/cholqr.cu: a 64-row tile and two panels fit)
 GRAM_COUNTERS = 4096  # the Gram's arrival counters per device (csrc/cholqr.cu plans their use)
 _COUNTERS: dict = {}
 
@@ -91,10 +91,8 @@ def _launch_trsm(name: str, fn: str, L, P):
         raise ValueError(f"{name}: shapes L {tuple(L.shape)}, rhs {tuple(P.shape)}")
     require_contiguous(name, L=L, rhs=P)
     n, k = P.shape
-    smem = (k * (k + 1) // 2 + k) * P.element_size()
-    if k > 256 or smem > _SMEM_LIMIT:
-        raise ValueError(f"{name}: k={k} does not fit the kernel "
-                         f"(k <= 256 and {smem} B of shared memory <= {_SMEM_LIMIT})")
+    if k > TRSM_MAX_K:
+        raise ValueError(f"{name}: k={k} does not fit the kernel (k <= {TRSM_MAX_K})")
     X = torch.empty_like(P)
     lib = library()
     with torch.cuda.device(P.device):

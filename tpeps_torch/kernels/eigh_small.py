@@ -9,9 +9,10 @@ import torch
 from . import LAUNCHES, require_contiguous, route, stream_of
 from .build import library
 
-MAX_SWEEPS = 30  # Jacobi sweep cap; an unconverged decomposition gives NaN
-# the largest k (H in one block's shared memory): the factored move's
-# largest chi on the card, where its polar kernel (K6) stops too
+MAX_SWEEPS = 30  # block Jacobi sweep cap; an unconverged decomposition gives NaN
+# the largest k routed here (the kernel keeps V^T in one block's shared
+# memory, k <= 170): the factored move's largest chi on the card, where its
+# polar kernel (K6) stops too
 EIGH_SMALL_MAX = 169
 
 
@@ -48,14 +49,11 @@ def eigh_small(H, info=None):
     lib = library()
     w = torch.empty(k, dtype=H.dtype, device=H.device)
     Vt = torch.empty_like(H)
-    rot = torch.empty(2 * lib.cdll.tpeps_eigh_small_rotations(k, MAX_SWEEPS), dtype=H.dtype,
-                      device=H.device)
     if info is None:
         info = torch.empty(2, dtype=torch.int32, device=H.device)
     with torch.cuda.device(H.device):
         err = lib.cdll.tpeps_eigh_small_f64(H.data_ptr(), w.data_ptr(), Vt.data_ptr(),
-                                            rot.data_ptr(), info.data_ptr(), k, MAX_SWEEPS,
-                                            stream_of(H))
+                                            info.data_ptr(), k, MAX_SWEEPS, stream_of(H))
     lib.check(err, "eigh_small")
     LAUNCHES["eigh_small"] += 1
     return w, Vt.mT
