@@ -3,9 +3,11 @@
 
 Usage: ``python3 chip_smoke.py`` from the repository root, on a machine
 with one CUDA card and ``nvcc`` (CUDA_HOME, PATH or the toolkit's default
-prefix).  It needs no network and no JAX.  ``python3 chip_smoke.py --ablate``
-runs phases 0 and 1 and then only :func:`ablate`, the timing breakdown of
-K3's Gram and solves, K7's ``ozaki_gemm`` and ``eigh_small``.
+prefix).  It needs no network and no JAX.  ``python3 chip_smoke.py --ablate
+[--parent DIR] [--only PARTS]`` runs phases 0 and 1 and then only
+:func:`ablate`, the timing breakdown of K1's fused double layer, K2's
+corner apply, K3's Gram and solves, K7's ``ozaki_gemm`` and ``eigh_small``
+(with a parent checkout: its kernels and its graphed move beside these).
 
 Phases (any failed check exits non-zero; there is no CPU fallback):
 
@@ -16,7 +18,10 @@ Phases (any failed check exits non-zero; there is no CPU fallback):
 2. kernels vs their plain torch twins on the card at the slice's shapes
    (J1-J2 C4v, D=7, chi=147), in float64 (max relative error <= 1e-12)
    and float32 (<= 1e-5, summation order differs), K1/K4 with and without
-   the physical-index slicing, K6 on a near-orthogonal overlap from the
+   the physical-index slicing (:func:`fused_checks`: K1 also at both call
+   sites' layouts at chi = 155 and 169 and with chi_n != chi, K2 at n and m
+   that are no multiples of its tiles and at chi = 155 and 169, two calls
+   bit-identical), K6 on a near-orthogonal overlap from the
    D=7 path and on a random well-conditioned one, and with its Jacobi
    sweeps capped below convergence (the guard must give I); kernel, twin and
    library times from CUDA events, and each kernel's bound: the bytes its
@@ -162,6 +167,7 @@ The last two lines of stdout are the per-kernel JSON record and
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import itertools
 import json
 import math
@@ -193,7 +199,7 @@ LOSS_SMALL_TOL, SMALL_EPOCHS = 1e-8, 3
 SMALL_SEED = 1
 GRAD_SMALL_TOL = {1: 1e-8, 0: 1e-7}
 SOURCES = {  # kernel -> (source, TPU-path function it replaces)
-    "layer_contract": ("tpeps_torch/csrc/layer_contract.cu", "tpeps/ctm/c4v/move_tpu.py:87"),
+    "double_layer": ("tpeps_torch/csrc/double_layer.cu", "tpeps/ctm/c4v/move_tpu.py:87"),
     "corner_apply": ("tpeps_torch/csrc/corner_apply.cu", "tpeps/ctm/c4v/move_tpu.py:121"),
     "gram_ridge": ("tpeps_torch/csrc/cholqr.cu", "tpeps/linalg/power.py:133"),
     "gram": ("tpeps_torch/csrc/cholqr.cu", "tpeps/linalg/power.py:86"),
@@ -225,7 +231,7 @@ SOURCES = {  # kernel -> (source, TPU-path function it replaces)
     "generic_epilogue_vjp": ("tpeps_torch/csrc/frozen_generic.cu",
                              "tpeps/ctm/generic_abelian/frozen.py:198"),
 }
-FORWARD = ("layer_contract", "corner_apply", "gram_ridge", "gram", "trsm_right_lower_h",
+FORWARD = ("double_layer", "corner_apply", "gram_ridge", "gram", "trsm_right_lower_h",
            "t_epilogue", "polar_unitary", "eigh_small")
 # the large-D slice (phase 7): the on-card loop and the Ozaki polish
 LARGE_D = ("ozaki_split", "ozaki_gemm", "ctm_commit")
@@ -363,7 +369,7 @@ def twins_on_card():
             mock.patch.object(ozaki_linalg, "ozaki_split", ozaki.ozaki_split_twin), \
             mock.patch.object(ozaki_linalg, "ozaki_gemm", ozaki.ozaki_gemm_twin), \
             mock.patch.object(move_graph, "ctm_commit", commit_twin), \
-            mock.patch.object(move_factored, "layer_contract", layer.layer_contract_twin), \
+            mock.patch.object(move_factored, "double_layer", layer.double_layer_twin), \
             mock.patch.object(move_factored, "corner_apply", corner.corner_apply_twin), \
             mock.patch.object(move_factored, "t_epilogue", epilogue.t_epilogue_twin), \
             mock.patch.object(power, "gram_ridge", cholqr.gram_ridge_twin), \
@@ -471,9 +477,10 @@ def time_case(rec, name, kern, twin, lib, nb, ops, peak):
     ms, plain_ms = cuda_ms(kern), cuda_ms(twin)
     plain_ms2, ms2 = cuda_ms(twin), cuda_ms(kern)
     bound_ms, bound_by = bound(nb, ops, peak)
-    rec[name] = {"max_abs_err": err, "ms": min(ms, ms2), "plain_ms": min(plain_ms, plain_ms2),
-                 "bound_ms": bound_ms, "bound_by": bound_by,
-                 "library_ms": cuda_ms(lib) if lib is not None else None}
+    rec.setdefault(name, {}).update({
+        "max_abs_err": err, "ms": min(ms, ms2), "plain_ms": min(plain_ms, plain_ms2),
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": cuda_ms(lib) if lib is not None else None})
     lib_txt = f", library {rec[name]['library_ms']:.3f} ms" if lib is not None else ""
     print(f"  {name}: kernel {rec[name]['ms']:.3f} ms, twin {rec[name]['plain_ms']:.3f} ms"
           f"{lib_txt}, bound {bound_ms:.4f} ms ({bound_by}), max abs err {err:.2e}")
@@ -523,6 +530,61 @@ def solve_checks(label, L0, P0, dtype) -> None:
               f"K3 {name} {tag}, L of {label} (cond {cond:.2e}): backward error kernel "
               f"{b_k:.2e}, twin {b_t:.2e} <= {BWD_TOL[dtype]:.0e}; forward error against the twin "
               f"{e:.2e} <= 2 k u cond(L) = {fwd_tol:.2e}; two calls bit-identical")
+
+
+def fused_checks(a, tol, tag, gen, dev) -> dict:
+    """K1's fused double layer and K2's corner apply against their twins on
+    seeded random operands at the shapes the path can give them: K1 into the
+    move's layout (M2's and Z's rows padded to an even pitch: bulk stores)
+    at chi = chi + 8 and 169, and into Z[d,e,f,r,g,p] (i the unit-stride
+    axis: stores element by element) with chi_n != chi (chi + 8) and at
+    169, X unpadded (8-byte copies), slice_phys both ways; K2 at n = chi D^2 for chi = 147, 155 and 169 with
+    m = chi, chi + 8 and 177 (two column tiles), on M2 with an even pitch and
+    with the unpadded odd one (its 8-byte copies), and at n = 1000, m = 33;
+    each <= ``tol`` relative and two calls bit-identical.  Returns the
+    kernels' times (CUDA events) at the corner's and the K2 shapes."""
+    from tpeps_torch.kernels import corner, layer
+
+    dtype, D_ = a.dtype, a.shape[1]
+    rnd = lambda *shape: torch.randn(*shape, generator=gen, device=dev, dtype=dtype)
+    out_ms = {}
+    for chi, chi_n, site in ((CHI + 8, CHI + 8, "padded rows"), (EIGH_BIG, EIGH_BIG, "padded rows"),
+                             (CHI, CHI + 8, "i contiguous"), (EIGH_BIG, EIGH_BIG, "i contiguous")):
+        X6 = rnd(D_, D_, chi, D_, D_, chi_n)
+        if site == "padded rows":
+            n = chi * D_ * D_
+            out = torch.empty((n, n + n % 2), dtype=dtype, device=dev)[:, :n].view(
+                chi, D_, D_, chi_n, D_, D_).permute(2, 5, 1, 4, 0, 3)
+        else:
+            out = torch.empty((chi, D_, D_, D_, D_, chi_n), dtype=dtype,
+                              device=dev).permute(2, 4, 1, 3, 0, 5)
+        ref = layer.double_layer_twin(a, X6, torch.empty(out.shape, dtype=dtype, device=dev))
+        for sp in (False, True):
+            o1 = layer.double_layer(a, X6, out, slice_phys=sp).clone()
+            o2 = layer.double_layer(a, X6, out, slice_phys=sp)
+            e = rel_err(o1, ref)
+            check(e <= tol and torch.equal(o1, o2),
+                  f"K1 double_layer {tag}, {site} layout, chi={chi}, chi_n={chi_n}, "
+                  f"slice_phys={sp}: rel err {e:.2e} <= {tol:.0e}, two calls bit-identical")
+        out_ms[f"{site} chi={chi} chi_n={chi_n}"] = cuda_ms(lambda: layer.double_layer(a, X6, out))
+        del X6, out, ref, o1, o2
+    for chi, m, pad in ((CHI, CHI, True), (CHI, CHI, False), (CHI, CHI + 8, True),
+                        (CHI + 8, CHI + 8, True), (EIGH_BIG, EIGH_BIG, True),
+                        (EIGH_BIG, 177, True), (None, 33, False)):
+        n = 1000 if chi is None else chi * D_ * D_
+        M2 = rnd(n, n + (n % 2 if pad else 0))[:, :n]
+        P = rnd(n, m)
+        Y1, Y2 = corner.corner_apply(M2, P), corner.corner_apply(M2, P)
+        e = rel_err(Y1, corner.corner_apply_twin(M2, P))
+        pitch = f"pitch {M2.stride(0)}"
+        check(e <= tol and torch.equal(Y1, Y2),
+              f"K2 corner_apply {tag}, n={n}, m={m}, {pitch}: rel err {e:.2e} <= {tol:.0e}, "
+              "two calls bit-identical")
+        out_ms[f"corner_apply n={n} m={m} {pitch}"] = cuda_ms(lambda: corner.corner_apply(M2, P))
+        del M2, P, Y1, Y2
+    print(f"  K1/K2 {tag} kernel times (CUDA events): "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in out_ms.items()))
+    return out_ms
 
 
 def phase2(dev) -> dict:
@@ -665,24 +727,24 @@ def phase2(dev) -> dict:
             Wb = torch.randn(CHI, CHI, generator=gen, device=dev, dtype=dtype)
             e = rel_err(polar.polar_vjp(W, Wb), polar.polar_vjp_twin(W, Wb))
             check(e <= tol, f"K6 polar_vjp {tag}: rel err {e:.2e} <= {tol:.0e}")
+            rec.setdefault("double_layer", {})[f"checks_{tag}"] = fused_checks(a, tol, tag,
+                                                                              gen, dev)
             if dtype != torch.float64:
                 continue
             # per-kernel timing (f64, the slice's dtype), max abs error, the
             # bound and, where one torch call computes the same function, its
-            # time; layer_contract is timed as K1's two launches (ket K=49,
-            # bra K=98), its library call as one einsum of both layers
+            # time; double_layer at the corner's shapes and in the move's
+            # layouts (X's i axis and M2's rows padded), its library call one
+            # einsum of both layers
+            cp = mf._row_pitch(CHI)
+            Tt = torch.nn.functional.pad(T_int.permute(3, 0, 1, 2), (0, cp - CHI))
             q1 = (T_int.permute(0, 1, 3, 2).reshape(D * D * CHI, CHI)
-                  @ (env.C @ T_int.permute(3, 0, 1, 2).reshape(CHI, D * D * CHI)))
-            Xk = q1.view(D, D, CHI, D, D, CHI).permute(3, 0, 1, 2, 4, 5)
-            Wk = a.permute(0, 3, 4, 1, 2).reshape(2 * D * D, D * D).contiguous()
-            Wbr = a.conj().permute(3, 4, 0, 1, 2).reshape(D * D, 2 * D * D).contiguous()
-            q = torch.empty((2, D, D, D, CHI, D, CHI), dtype=dtype, device=dev)
-            M2b = torch.empty((CHI, D, D, CHI, D, D), dtype=dtype, device=dev)
-
-            def k1_layers(fn):
-                fn(Wk, Xk, q, 2)
-                fn(Wbr, q.permute(0, 5, 3, 1, 2, 4, 6), M2b.permute(2, 5, 1, 4, 0, 3), 3)
-                return M2b
+                  @ (env.C @ Tt.reshape(CHI, D * D * cp)))
+            X6 = q1.view(D, D, CHI, D, D, cp)[..., :CHI]
+            nn_ = CHI * D * D
+            M2b = torch.empty((nn_, nn_ + nn_ % 2), dtype=dtype, device=dev)[:, :nn_]
+            out6 = M2b.view(CHI, D, D, CHI, D, D).permute(2, 5, 1, 4, 0, 3)
+            del Tt
 
             nT_raw = mf._absorb_T_int(a, T_int, P, CHI, CHI)
             n, k = Pm.shape
@@ -702,12 +764,10 @@ def phase2(dev) -> dict:
             jac_ms = min(cuda_ms(lambda: polar.polar_unitary(O_path)) for _ in range(2))
             cols = D * D * CHI * CHI  # the free (e,r,j,i) / (m,j,v,i) axes of a layer
             cases = {  # name: (kernel, twin, library call or None, bytes, flops, peak)
-                "layer_contract": (lambda: k1_layers(layer.layer_contract),
-                                   lambda: k1_layers(layer.layer_contract_twin),
-                                   lambda: torch.einsum("suler,svmfg,lmjuvi->jefirg", a, a,
-                                                        q1.view(D, D, CHI, D, D, CHI)),
-                                   nbytes(Wk, q1, Wbr, M2b), 2 * 2 * (2 * D * D) * D * D * cols,
-                                   FP64_TC),
+                "double_layer": (lambda: layer.double_layer(a, X6, out6),
+                                 lambda: layer.double_layer_twin(a, X6, out6),
+                                 lambda: torch.einsum("suler,svmfg,lmjuvi->jefirg", a, a, X6),
+                                 nbytes(a, X6, M2b), 2 * 2 * (2 * D * D) * D * D * cols, FP64_TC),
                 "corner_apply": (lambda: corner.corner_apply(M2, P),
                                  lambda: corner.corner_apply_twin(M2, P),
                                  lambda: torch.matmul(M2, P),
@@ -741,7 +801,7 @@ def phase2(dev) -> dict:
                 time_case(rec, name, *case)
             rec["polar_unitary"]["ms_jacobi_branch"] = jac_ms
             print(f"  polar_unitary, Jacobi branch (move 4's overlap): kernel {jac_ms:.3f} ms")
-            del M2b, q, q1
+            del M2b, q1, X6
     for name, shapes in gram_shapes.items():
         rec[name]["shapes"] = shapes
     return rec
@@ -1085,7 +1145,7 @@ def phase2_large_d(dev) -> dict:
         del Hs, H, U
 
         # ozaki_split / ozaki_gemm on the presplit corner and a basis
-        M2 = mf._c2x2_factored(a, env.C, T_int)
+        M2 = mf._c2x2_factored(a, env.C, T_int).contiguous()
         P = torch.linalg.qr(torch.randn(CHI * D * D, CHI, generator=gen, device=dev,
                                         dtype=torch.float64)).Q.contiguous()
         n, k = P.shape
@@ -2417,8 +2477,9 @@ def phase10(dev) -> tuple:
 
 
 # what each -DTPEPS_ABLATE bit leaves out (csrc/cholqr.cu, csrc/ozaki.cu,
-# csrc/eigh_small.cu); the copies of eigh_small.cu run every sweep (64), as
-# many as the whole kernel needed
+# csrc/eigh_small.cu, csrc/double_layer.cu, csrc/corner_apply.cu); the copies
+# of eigh_small.cu run every sweep (64), as many as the whole kernel needed; a
+# string key is a define of its own (K2's DMMA shape)
 ABLATIONS = {"cholqr.cu": {0: "whole", 1: "no loads", 2: "no MMAs", 3: "no loads, no MMAs",
                            4: "no k loop", 8: "no panel updates", 16: "no substitutions",
                            24: "no panel updates, no substitutions",
@@ -2427,46 +2488,99 @@ ABLATIONS = {"cholqr.cu": {0: "whole", 1: "no loads", 2: "no MMAs", 3: "no loads
              "eigh_small.cu": {0: "whole", 64: "whole, every sweep", 65: "no subproblems",
                                66: "no H updates", 68: "no V updates",
                                71: "no subproblems, no H or V updates",
-                               72: "every subproblem a full sweep in every round"}}
-ABLATE_KERNELS = ("gram_kernel", "ozaki_gemm_kernel", "trsm_kernel", "block_jacobi")
+                               72: "every subproblem a full sweep in every round"},
+             "double_layer.cu": {0: "whole", 1: "no loads", 2: "no ket product",
+                                 4: "no bra product", 8: "no stores",
+                                 6: "no ket or bra product", 9: "no loads, no stores",
+                                 7: "stores only", 14: "loads only",
+                                 15: "no loads, products or stores",
+                                 "-DTPEPS_DL_MMA_K=8": "m16n8k8"},
+             "corner_apply.cu": {0: "whole", 1: "no copies", 2: "no DMMAs",
+                                 4: "no split-K reduction", 3: "no copies, no DMMAs",
+                                 "-DTPEPS_K2_MMA_K=8": "m16n8k8",
+                                 "-DTPEPS_K2_MMA_K=16": "m16n8k16",
+                                 "-DTPEPS_K2_WM=2": "64-row tiles",
+                                 "-DTPEPS_K2_WM=3": "96-row tiles",
+                                 "-DTPEPS_K2_STAGES=3": "3 stages"}}
+ABLATE_KERNELS = ("gram_kernel", "ozaki_gemm_kernel", "trsm_kernel", "block_jacobi",
+                  "double_layer_kernel", "corner_dmma_kernel", "layer_dmma_kernel",
+                  "dmma_gemm_kernel")
+# the parts of ablate(): the sources each builds, and those of the parent it needs
+ABLATE_GROUPS = {"gram": ("cholqr.cu",), "ozaki": ("ozaki.cu",), "solves": ("cholqr.cu",),
+                 "eigh": ("eigh_small.cu",), "fused": ("double_layer.cu", "corner_apply.cu")}
+ABLATE_PARENT = {"solves": ("cholqr.cu",), "fused": ("layer_contract.cu", "corner_apply.cu")}
 
 
-def ablate(parent=None) -> dict:
-    """Where the time of K3's Gram and solves, K7's ``ozaki_gemm`` and
-    ``eigh_small`` goes: each source built again with one part of its
-    kernel left out (``-DTPEPS_ABLATE``, one nvcc each, all started
-    together), each copy's ptxas registers, and each called through its C
-    entry on the same seeded inputs and timed side by side (:func:`graph_ms`,
-    the smaller of two means, the copies in turn and then in reverse).  The
-    Gram at k = chi in f64, ``gram`` and ``gram_ridge``; ``ozaki_gemm`` at the
-    sliced and the ket layers and at M2 P, beside FP64 ``torch.matmul``; the
-    solves at n = chi D^2 and k = chi, chi + 8 in f64 and f32 beside
-    ``torch.linalg.solve_triangular``; ``eigh_small`` on the Rayleigh-Ritz H of
-    moves 4 and 31 of the D=7 path and on dense random H of k = 169 and 64
-    beside ``torch.linalg.eigh``.  With ``parent``, the root of another
-    checkout, its ``cholqr.cu`` is built too and its solves timed first and
-    last in the same turns (parent, change, change, parent).  Run by
-    ``chip_smoke.py --ablate [--parent DIR]``."""
-    import ctypes
+class ParentLayerGeom(ctypes.Structure):
+    """The parent's ``struct LayerGeom`` (its two-launch ``layer_contract.cu``),
+    for timing it beside the fused kernel."""
 
+    _fields_ = [("K", ctypes.c_int64), ("P", ctypes.c_int64), ("N", ctypes.c_int64),
+                ("kd", ctypes.c_int64 * 3), ("xk", ctypes.c_int64 * 3),
+                ("pd", ctypes.c_int64 * 3), ("yp", ctypes.c_int64 * 3),
+                ("nd", ctypes.c_int64 * 4), ("xn", ctypes.c_int64 * 4),
+                ("yn", ctypes.c_int64 * 4)]
+
+
+def parent_layer_geom(W, X, Y, n_k):
+    """The parent's geometry of ``Y[p.., n..] = W[p, k] X[k.., n..]``
+    (its wrapper's, ``tpeps_torch/kernels/layer.py``)."""
+    pad = lambda vals, n, fill: (ctypes.c_int64 * n)(*([fill] * (n - len(vals)) + list(vals)))
+    n_p = Y.dim() - (X.dim() - n_k)
+    return ParentLayerGeom(
+        K=W.shape[1], P=W.shape[0], N=math.prod(X.shape[n_k:]),
+        kd=pad(X.shape[:n_k], 3, 1), xk=pad(X.stride()[:n_k], 3, 0),
+        pd=pad(Y.shape[:n_p], 3, 1), yp=pad(Y.stride()[:n_p], 3, 0),
+        nd=pad(X.shape[n_k:], 4, 1), xn=pad(X.stride()[n_k:], 4, 0),
+        yn=pad(Y.stride()[n_p:], 4, 0))
+
+
+def ablate(parent=None, only=None) -> dict:
+    """Where the time of K3's Gram and solves, K7's ``ozaki_gemm``,
+    ``eigh_small``, K1's fused double layer and K2's corner apply goes: each
+    source built again with one part of its kernel left out
+    (``-DTPEPS_ABLATE``, one nvcc each, all started together), each copy's
+    ptxas registers, and each called through its C entry on the same seeded
+    inputs and timed side by side (:func:`graph_ms`, the smaller of two
+    means, the copies in turn and then in reverse).  The Gram at k = chi in
+    f64, ``gram`` and ``gram_ridge``; ``ozaki_gemm`` at the sliced and the
+    ket layers and at M2 P, beside FP64 ``torch.matmul``; the solves at n =
+    chi D^2 and k = chi, chi + 8 in f64 and f32 beside
+    ``torch.linalg.solve_triangular``; ``eigh_small`` on the Rayleigh-Ritz H
+    of moves 4 and 31 of the D=7 path and on dense random H of k = 169 and
+    64 beside ``torch.linalg.eigh``; K1 and K2 (:func:`ablate_fused`).  With
+    ``parent``, the root of another checkout, its ``cholqr.cu``,
+    ``layer_contract.cu`` and ``corner_apply.cu`` are built too and its
+    solves, layers and corner apply timed first and last in the same turns
+    (parent, change, change, parent), and the graphed move is timed in each
+    checkout (:func:`move_compare`).  ``only`` names the parts to run
+    (:data:`ABLATE_GROUPS`).  Run by ``chip_smoke.py --ablate [--parent DIR]
+    [--only gram,ozaki,solves,eigh,fused]``."""
     from tpeps_torch.kernels import build as kb
-    from tpeps_torch.kernels import ozaki
 
-    print("== ablation: K3 gram and solves, K7 ozaki_gemm, eigh_small with parts left out",
-          flush=True)
+    groups = tuple(ABLATE_GROUPS) if only is None else tuple(only)
+    print(f"== ablation ({', '.join(groups)}): kernels with parts left out", flush=True)
     dev = torch.device("cuda", 0)
     out_dir = kb.BUILD_DIR / "ablate"
     out_dir.mkdir(parents=True, exist_ok=True)
     nvcc, procs = kb.find_nvcc(), {}
-    builds = {(src, bits): (f"-DTPEPS_ABLATE={bits}", label, kb.CSRC_DIR / src)
-              for src, variants in ABLATIONS.items() for bits, label in variants.items()}
+    srcs = {src for grp in groups for src in ABLATE_GROUPS[grp]}
+    builds = {(src, key): (key if isinstance(key, str) else f"-DTPEPS_ABLATE={key}", label,
+                           kb.CSRC_DIR / src)
+              for src, variants in ABLATIONS.items() if src in srcs
+              for key, label in variants.items()}
     if parent is not None:
-        builds["cholqr.cu", "parent"] = ("-DTPEPS_ABLATE=0", "parent",
-                                         Path(parent) / "tpeps_torch" / "csrc" / "cholqr.cu")
+        for grp in groups:
+            for src in ABLATE_PARENT.get(grp, ()):
+                path = Path(parent) / "tpeps_torch" / "csrc" / src
+                if src == "layer_contract.cu" and not path.exists():  # a parent after PR 9
+                    src, path = "double_layer.cu", path.with_name("double_layer.cu")
+                builds[src, "parent"] = ("-DTPEPS_ABLATE=0", "parent", path)
     try:
         for (src, key), (flag, _, path) in builds.items():
-            so = out_dir / f"{Path(src).stem}_{key}.so"
-            cmd = [nvcc, *kb.NVCC_FLAGS, flag, "-shared", str(path), "-o", str(so)]
+            tag = re.sub(r"\W+", "_", str(key))
+            so = out_dir / f"{Path(src).stem}_{tag}.so"
+            cmd = [nvcc, *kb.NVCC_FLAGS, *flag.split(), "-shared", str(path), "-o", str(so)]
             procs[src, key] = (so, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                                     stderr=subprocess.STDOUT, text=True))
         libs = {}
@@ -2499,6 +2613,24 @@ def ablate(parent=None) -> dict:
     def stream():  # the capturing stream inside a graph
         return torch.cuda.current_stream(dev).cuda_stream
 
+    rec = {}
+    if "fused" in groups:
+        rec.update(ablate_fused(libs, in_turns, stream, dev, parent is not None))
+        if parent is not None:
+            rec["move"] = move_compare(parent)
+    if "solves" in groups:
+        rec.update(ablate_solves(libs, in_turns, stream, dev, parent is not None))
+    if "eigh" in groups:
+        rec.update(ablate_eigh(libs, in_turns, stream, dev))
+    if "gram" in groups:
+        rec.update(ablate_gram(libs, in_turns, stream, dev))
+    if "ozaki" in groups:
+        rec.update(ablate_ozaki(libs, in_turns, stream, dev))
+    return rec
+
+
+def ablate_gram(libs, in_turns, stream, dev) -> dict:
+    """:func:`ablate`'s part for K3's two Grams."""
     gen = torch.Generator(device=dev).manual_seed(0)
     rec = {}
     n, k = CHI * D * D, CHI
@@ -2525,7 +2657,15 @@ def ablate(parent=None) -> dict:
         rec[f"{label} f64 {n} x {k}"] = ms = in_turns(calls, 20, 5)
         print(f"  {label} f64 {n} x {k}: " + ", ".join(f"{v} {t * 1000:.1f} us"
                                                      for v, t in ms.items()), flush=True)
-    del A, B
+    return rec
+
+
+def ablate_ozaki(libs, in_turns, stream, dev) -> dict:
+    """:func:`ablate`'s part for K7's ``ozaki_gemm``."""
+    from tpeps_torch.kernels import ozaki
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    rec, n = {}, CHI * D * D
     kind_c, coef_c = ozaki._table_c(8, 7)
     for label, (m, kk, nn) in {"sliced layer": (D * D, D * D, D * D * CHI * CHI),
                                "ket layer": (2 * D * D, D * D, D * D * CHI * CHI),
@@ -2549,8 +2689,6 @@ def ablate(parent=None) -> dict:
         print(f"  ozaki_gemm {label} {m} x {kk} by {kk} x {nn}: "
               + ", ".join(f"{v} {t:.3f} ms" for v, t in ms.items()), flush=True)
         del X, Y, Xp, Yp, C
-    rec.update(ablate_solves(libs, in_turns, stream, dev, parent is not None))
-    rec.update(ablate_eigh(libs, in_turns, stream, dev))
     return rec
 
 
@@ -2628,6 +2766,224 @@ def ablate_eigh(libs, in_turns, stream, dev) -> dict:
     return rec
 
 
+def ablate_fused(libs, in_turns, stream, dev, with_parent) -> dict:
+    """:func:`ablate`'s part for K1's fused double layer and K2's corner
+    apply at the corner's shapes (D=7, chi=147; X and M2 seeded random, M2's
+    rows padded to an even pitch as the move leaves them): every copy of
+    ``double_layer.cu`` in f64 and f32 beside one ``torch.einsum`` of both
+    layers and, with the parent, its two ``layer_contract`` launches (first
+    and last); every copy of ``corner_apply.cu`` at n = chi D^2, m = chi in
+    f64 beside ``torch.matmul`` and, with the parent, its ``corner_apply``
+    on an unpadded M2 (its layout); K2's f32 kernel and the parent's."""
+    from tpeps_torch.kernels import ARRIVAL_COUNTERS
+    from tpeps_torch.kernels.layer import _DLGeom, bulk_runs, store_order, vector_rows
+
+    rec, n, d = {}, CHI * D * D, 2
+    gen = torch.Generator(device=dev).manual_seed(6)
+    for dtype in (torch.float64, torch.float32):
+        sfx = "f64" if dtype == torch.float64 else "f32"
+        a = bench_state(D, dev, dtype)
+        # X with its i axis padded to a multiple of 4, as the move lays it out
+        cp = -(-CHI // 4) * 4
+        Xbuf = torch.randn(D, D, CHI, D, D, cp, generator=gen, device=dev, dtype=dtype)
+        X6 = Xbuf[..., :CHI]
+        M2 = torch.empty((n, n + n % 2), dtype=dtype, device=dev)[:, :n]
+        out = M2.view(CHI, D, D, CHI, D, D).permute(2, 5, 1, 4, 0, 3)
+        Wk = a.permute(0, 3, 4, 1, 2).reshape(d * D * D, D * D).contiguous()
+        WbT = a.permute(0, 2, 1, 3, 4).reshape(d * D * D, D * D).contiguous()
+        geo = _DLGeom(nj=CHI, ni=CHI, xs=(ctypes.c_int64 * 6)(*X6.stride()),
+                      os=(ctypes.c_int64 * 6)(*out.stride()),
+                      order=(ctypes.c_int32 * 5)(*store_order(out)), d=d, D=D,
+                      vec=int(vector_rows(X6)), bulk=int(bulk_runs(out)))
+        check(geo.vec == 1 and geo.bulk == 1, "K1 timed on 16-byte copies of X's padded rows "
+              "and bulk stores of M2's padded rows, as in the move")
+        calls = {}
+        if with_parent and ("double_layer.cu", "parent") in libs:
+            def parent_layers(f=getattr(libs["double_layer.cu", "parent"],
+                                        f"tpeps_double_layer_{sfx}")):
+                f.argtypes = (ctypes.c_void_p,) * 6
+                err = f(Wk.data_ptr(), WbT.data_ptr(), X6.data_ptr(), out.data_ptr(),
+                        ctypes.byref(geo), stream())
+                if err:
+                    fail(f"parent double_layer launch: CUDA error {err}")
+            calls["parent"] = parent_layers
+        elif with_parent:
+            q = torch.empty((d, D, D, D, CHI, D, CHI), dtype=dtype, device=dev)
+            Wb = a.permute(3, 4, 0, 1, 2).reshape(D * D, d * D * D).contiguous()
+            Xk = X6.permute(3, 0, 1, 2, 4, 5)
+            qb = q.permute(0, 5, 3, 1, 2, 4, 6)
+            g_ket, g_bra = parent_layer_geom(Wk, Xk, q, 2), parent_layer_geom(Wb, qb, out, 3)
+            fn = getattr(libs["layer_contract.cu", "parent"], f"tpeps_layer_contract_{sfx}")
+            fn.argtypes = (ctypes.c_void_p,) * 4 + (ctypes.c_int, ctypes.c_void_p)
+
+            def parent_layers(fn=fn, Wk=Wk, Wb=Wb, Xk=Xk, q=q, g_ket=g_ket, g_bra=g_bra):
+                for W, X, Y, g in ((Wk, Xk, q, g_ket), (Wb, qb, out, g_bra)):
+                    err = fn(W.data_ptr(), X.data_ptr(), Y.data_ptr(), ctypes.byref(g), 0,
+                             stream())
+                    if err:
+                        fail(f"parent layer_contract launch: CUDA error {err}")
+            calls["parent"] = parent_layers
+        for key, label in ABLATIONS["double_layer.cu"].items():
+            def call(f=getattr(libs["double_layer.cu", key], f"tpeps_double_layer_{sfx}")):
+                err = f(Wk.data_ptr(), WbT.data_ptr(), X6.data_ptr(), out.data_ptr(),
+                        ctypes.byref(geo), stream())
+                if err:
+                    fail(f"double_layer launch: CUDA error {err}")
+            calls[label] = call
+        calls["torch.einsum"] = lambda a=a, X6=X6: torch.einsum("suler,svmfg,lmjuvi->jefirg",
+                                                               a, a, X6)
+        # about the same bytes moved by one plain contiguous copy (X read, written)
+        flat = torch.empty(Xbuf.numel(), dtype=dtype, device=dev)
+        calls["contiguous copy of X (torch)"] = lambda Xbuf=Xbuf, flat=flat: flat.copy_(
+            Xbuf.view(-1))
+        # the whole kernel on 8-byte copies of the same rows, and on X with
+        # its unpadded odd pitch (rows 8-byte aligned)
+        geo8 = _DLGeom.from_buffer_copy(geo)
+        geo8.vec = 0
+        geo_el = _DLGeom.from_buffer_copy(geo)
+        geo_el.bulk = 0
+        Xodd = torch.randn(D, D, CHI, D, D, CHI, generator=gen, device=dev, dtype=dtype)
+        geo_odd = _DLGeom.from_buffer_copy(geo8)
+        geo_odd.xs = (ctypes.c_int64 * 6)(*Xodd.stride())
+        for label, X, g in (("whole, 8-byte copies", X6, geo8),
+                            ("whole, unpadded X (8-byte copies)", Xodd, geo_odd),
+                            ("whole, stores element by element", X6, geo_el)):
+            def call(f=getattr(libs["double_layer.cu", 0], f"tpeps_double_layer_{sfx}"), X=X,
+                     g=g):
+                err = f(Wk.data_ptr(), WbT.data_ptr(), X.data_ptr(), out.data_ptr(),
+                        ctypes.byref(g), stream())
+                if err:
+                    fail(f"double_layer launch: CUDA error {err}")
+            calls[label] = call
+        if with_parent:
+            calls["parent, again"] = calls["parent"]
+        label = f"double_layer {sfx} D={D} chi={CHI}"
+        rec[label] = ms = in_turns(calls, 3, 2)
+        print(f"  {label}: " + ", ".join(f"{v} {t:.3f} ms" for v, t in ms.items()), flush=True)
+        del X6, Xbuf, Xodd, out, flat, calls
+        # K2
+        M2.copy_(torch.randn(n, n, generator=gen, device=dev, dtype=dtype))
+        M2c = M2.contiguous()
+        P = torch.randn(n, CHI, generator=gen, device=dev, dtype=dtype)
+        Y = torch.empty(n, CHI, dtype=dtype, device=dev)
+        calls = {}
+        if with_parent and hasattr(libs["corner_apply.cu", "parent"],
+                                   "tpeps_corner_apply_scratch_f64"):
+            libs_k2 = {"parent": libs["corner_apply.cu", "parent"]}  # a parent after PR 9
+        elif with_parent:
+            libs_k2 = {}
+            fp = getattr(libs["corner_apply.cu", "parent"], f"tpeps_corner_apply_{sfx}")
+            fp.argtypes = (ctypes.c_void_p,) * 3 + (ctypes.c_int, ctypes.c_int, ctypes.c_void_p)
+
+            def parent_k2(fp=fp):
+                err = fp(M2c.data_ptr(), P.data_ptr(), Y.data_ptr(), n, CHI, stream())
+                if err:
+                    fail(f"parent corner_apply launch: CUDA error {err}")
+            calls["parent"] = parent_k2
+        else:
+            libs_k2 = {}
+        keys = ABLATIONS["corner_apply.cu"] if dtype == torch.float64 else {0: "whole"}
+        for key, klabel in list(libs_k2.items()) + list(keys.items()):
+            lib = libs_k2[key] if key in libs_k2 else libs["corner_apply.cu", key]
+            klabel = key if key in libs_k2 else klabel
+            if dtype == torch.float64:
+                scratch = lib.tpeps_corner_apply_scratch_f64(n, CHI)
+                check(scratch >= 0, f"corner_apply scratch query: {scratch}")
+                part = torch.empty(max(scratch, 1), dtype=dtype, device=dev)
+                counters = torch.zeros(ARRIVAL_COUNTERS, dtype=torch.int32, device=dev)
+
+                def call(lib=lib, part=part, counters=counters):
+                    err = lib.tpeps_corner_apply_f64(
+                        M2.data_ptr(), M2.stride(0), P.data_ptr(), Y.data_ptr(), part.data_ptr(),
+                        part.numel(), counters.data_ptr(), counters.numel(), n, CHI, stream())
+                    if err:
+                        fail(f"corner_apply launch: CUDA error {err}")
+            else:
+                def call(lib=lib):
+                    err = lib.tpeps_corner_apply_f32(M2.data_ptr(), M2.stride(0), P.data_ptr(),
+                                                     Y.data_ptr(), n, CHI, stream())
+                    if err:
+                        fail(f"corner_apply launch: CUDA error {err}")
+            calls[klabel] = call
+        calls["torch.matmul"] = lambda P=P: torch.matmul(M2, P)
+        if with_parent:
+            calls["parent, again"] = calls["parent"]
+        label = f"corner_apply {sfx} {n} x {n} by {n} x {CHI}"
+        if dtype == torch.float64:
+            scratch = libs["corner_apply.cu", 0].tpeps_corner_apply_scratch_f64(n, CHI)
+            label += f" (scratch {scratch} doubles)"
+        rec[label] = ms = in_turns(calls, 5, 2)
+        print(f"  {label}: " + ", ".join(f"{v} {t:.3f} ms" for v, t in ms.items()), flush=True)
+        del M2, M2c, P, Y
+    return rec
+
+
+# one eager D=7 chi=147 f64 move's peak memory and time, and the graphed
+# move's (MoveGraph, 4 moves a replay), after 40 moves from the cold start:
+# run in a checkout's root by move_compare
+MOVE_CODE = r"""
+import json, time, numpy as np, torch
+from tpeps_torch.ctm.c4v import move_factored as mf
+from tpeps_torch.ctm.c4v.env import init_env
+from tpeps_torch.ctm.c4v.move_graph import CHAIN_CONV_TOL, CHAIN_MAX_ITER, MoveGraph
+from tpeps_torch.ipeps.ipeps_c4v import symmetrize_c4v
+torch.backends.cuda.matmul.allow_tf32 = False
+dev, D, chi = torch.device("cuda", 0), 7, 147
+x = np.random.RandomState(0).rand(2, D, D, D, D) - 0.5
+a = symmetrize_c4v(torch.as_tensor(x, dtype=torch.float64), normalize=True).to(dev)
+env = init_env(a, chi, "CTMRG")
+C, T, W = env.C, mf.to_int_layout(env.T, D), None
+P = mf.cold_start_basis(chi * D * D, chi, a.dtype, dev)
+for _ in range(40):
+    C, T, _, P, W = mf.ctm_move_w(a, C, T, P, W)
+torch.cuda.synchronize()
+base = torch.cuda.memory_allocated()
+torch.cuda.reset_peak_memory_stats()
+mf.ctm_move_w(a, C, T, P, W)
+torch.cuda.synchronize()
+peak = torch.cuda.max_memory_allocated() - base
+ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+ev[0].record()
+for _ in range(4):
+    mf.ctm_move_w(a, C, T, P, W)
+ev[1].record()
+ev[1].synchronize()
+eager = ev[0].elapsed_time(ev[1]) / 4
+g = MoveGraph(a, chi, n_moves=4)
+g.load(a, C, T, P, max_iter=CHAIN_MAX_ITER, conv_tol=CHAIN_CONV_TOL, W=W)
+g.run()
+torch.cuda.synchronize()
+ev[0].record()
+for _ in range(5):
+    g.run()
+ev[1].record()
+ev[1].synchronize()
+print("MOVE " + json.dumps({"peak_bytes_above_state": peak, "eager_ms_per_move": eager,
+                            "graphed_ms_per_move": ev[0].elapsed_time(ev[1]) / 20}))
+"""
+
+
+def move_compare(parent) -> dict:
+    """The graphed and the eager factored move and its peak memory, in the
+    parent's checkout and in this one, in turns (parent, change, change,
+    parent), each in a process of its own (:data:`MOVE_CODE`)."""
+    out = {}
+    here = Path(__file__).resolve().parent
+    for i, (label, cwd) in enumerate((("parent", Path(parent)), ("change", here),
+                                      ("change", here), ("parent", Path(parent)))):
+        proc = subprocess.run([sys.executable, "-c", MOVE_CODE], cwd=cwd, capture_output=True,
+                              text=True, timeout=600)
+        line = [ln for ln in proc.stdout.splitlines() if ln.startswith("MOVE ")]
+        check(proc.returncode == 0 and bool(line),
+              f"move in {label}'s checkout: rc {proc.returncode} {proc.stderr[-2000:]}")
+        r = json.loads(line[-1][5:])
+        out[f"{label} {i}"] = r
+        print(f"  move ({label}): graphed {r['graphed_ms_per_move']:.3f} ms/move, eager "
+              f"{r['eager_ms_per_move']:.3f} ms/move, peak {r['peak_bytes_above_state'] / 2**20:.1f}"
+              " MiB above the state", flush=True)
+    return out
+
+
 def main() -> None:
     t_start = time.perf_counter()
 
@@ -2698,9 +3054,10 @@ def main() -> None:
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--ablate"]:
-        parent = sys.argv[3] if sys.argv[2:3] == ["--parent"] else None
+        args = dict(zip(sys.argv[2::2], sys.argv[3::2]))
+        only = args["--only"].split(",") if "--only" in args else None
         print(phase0())
         phase1()
-        print(json.dumps({"ablation": ablate(parent)}))
+        print(json.dumps({"ablation": ablate(args.get("--parent"), only)}))
     else:
         main()

@@ -46,6 +46,7 @@ from tpeps_torch.io.convert import abelian_to_torch
 from tpeps_torch.ipeps.ipeps_abelian import IPEPS_ABELIAN
 from tpeps_torch.kernels.frozen import frozen_commit_twin, frozen_state
 from tpeps_torch.models.abelian.j1j2 import J1J2_ABELIAN
+from test_torch_package import one_torch_thread  # noqa: F401  (autouse)
 
 CPU = torch.device("cpu")
 ROOT = Path(__file__).resolve().parents[1]

@@ -54,6 +54,7 @@ from tpeps_torch.linalg.svd import fix_svd_signs, svd_reg
 from tpeps_torch.models.abelian.j1j2 import J1J2_ABELIAN
 from tpeps_torch.sym import frozen as t_sfrozen
 from tpeps_torch.sym.tensor import AbelianTensor
+from test_torch_package import one_torch_thread  # noqa: F401  (autouse)
 
 CPU = torch.device("cpu")
 CHI, J2, FROZEN_ITER = 9, 0.3, 40

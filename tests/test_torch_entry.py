@@ -27,6 +27,7 @@ from tpeps_torch.examples.optim_common_c4v import converge_c4v, optimize_c4v
 from tpeps_torch.io.convert import config_from_dict, to_torch
 from tpeps_torch.ipeps.ipeps_c4v import symmetrize_c4v
 from tpeps_torch.models.j1j2 import J1J2_C4V_BIPARTITE
+from test_torch_package import one_torch_thread  # noqa: F401  (autouse)
 
 CPU = torch.device("cpu")
 CHI, D, J2 = 8, 2, 0.3

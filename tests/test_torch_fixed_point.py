@@ -29,6 +29,7 @@ from tpeps_torch.ctm.c4v.ctmrg import run_fixed_point
 from tpeps_torch.io.convert import to_torch
 from tpeps_torch.kernels.ctm_loop import ctm_commit, loop_state
 from tpeps_torch.models.j1j2 import J1J2_C4V_BIPARTITE
+from test_torch_package import one_torch_thread  # noqa: F401  (autouse)
 
 D, CHI = 2, 16
 

@@ -33,6 +33,7 @@ from tpeps_torch.ipeps.ipeps_c4v import symmetrize_c4v
 from tpeps_torch.linalg import eigh as t_eigh
 from tpeps_torch.linalg import power as t_power
 from tpeps_torch.models.j1j2 import J1J2_C4V_BIPARTITE
+from test_torch_package import one_torch_thread  # noqa: F401  (autouse)
 
 CPU = torch.device("cpu")
 

@@ -17,6 +17,7 @@ from tpeps.linalg import eigh as j_eigh
 from tpeps.linalg import power as j_power
 from tpeps_torch.linalg import eigh as t_eigh
 from tpeps_torch.linalg import power as t_power
+from test_torch_package import one_torch_thread  # noqa: F401  (autouse)
 
 TOL = 1e-12
 

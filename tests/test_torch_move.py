@@ -21,6 +21,7 @@ from tpeps.ctm.c4v.env import init_env as j_init_env
 from tpeps.ipeps.ipeps_c4v import symmetrize_c4v as j_symmetrize
 from tpeps_torch.ctm.c4v import move_factored as tm
 from tpeps_torch.io.convert import to_torch
+from test_torch_package import one_torch_thread  # noqa: F401  (autouse)
 
 CASES = [(2, 8), (3, 18)]
 IDS = [f"D{D}_chi{chi}" for D, chi in CASES]
@@ -80,6 +81,29 @@ def test_k4_absorb_and_epilogue(case, slice_phys, norm):
     nTt = tm.t_epilogue(tm._absorb_T_int(case["at"], case["Tt"], torch.from_numpy(case["P"]),
                                          chi, chi, slice_phys=slice_phys), norm).numpy()
     assert _rel(nTt, nTj) < 1e-12
+
+
+@pytest.mark.parametrize("slice_phys", [False, True], ids=["full", "slice_phys"])
+def test_k1_k4_double_layer_f32(case, slice_phys):
+    """The fused double layer's twin in float32 at both call sites, against
+    JAX's ``_c2x2_factored`` and ``_absorb_T_int`` on the same float32
+    inputs: 1e-5 relative (float32's 6e-8 unit roundoff over sums of up to
+    d D^4 = 162 terms and the chi products around them, summed in another
+    order by each library)."""
+    chi = case["chi"]
+    f32 = lambda x: np.asarray(x, dtype=np.float32)
+    aj, Cj, Tj, Pj = (jnp.asarray(f32(x)) for x in (case["aj"], case["envj"].C, case["Tj"],
+                                                      case["P"]))
+    at, Ct, Tt, Pt = (torch.from_numpy(f32(x)) for x in (case["aj"], case["envj"].C,
+                                                          case["Tj"], case["P"]))
+    M6 = np.asarray(jm._c2x2_factored(aj, Cj, Tj, slice_phys=slice_phys))
+    M2 = tm._c2x2_factored(at, Ct, Tt, slice_phys=slice_phys)
+    assert M2.dtype == torch.float32
+    assert _rel(M2.numpy(), M6.transpose(4, 2, 0, 5, 3, 1).reshape(M2.shape)) < 1e-5
+    nTj = np.asarray(jm._absorb_T_int(aj, Tj, Pj, chi, chi, slice_phys=slice_phys))
+    nTt = tm._absorb_T_int(at, Tt, Pt, chi, chi, slice_phys=slice_phys)
+    assert nTt.dtype == torch.float32
+    assert _rel(nTt.numpy(), nTj) < 1e-5
 
 
 def test_full_move_from_cold_start(case):

@@ -36,6 +36,7 @@ from tpeps_torch.ipeps.ipeps_c4v import symmetrize_c4v
 from tpeps_torch.models.j1j2 import J1J2_C4V_BIPARTITE
 from tpeps_torch.optim.driver import optimize_state
 from tpeps_torch.optim.lbfgs import LBFGS
+from test_torch_package import one_torch_thread  # noqa: F401  (autouse)
 
 CPU = torch.device("cpu")
 CHI, D = 8, 2

@@ -27,6 +27,7 @@ from tpeps_torch.io.convert import to_torch
 from tpeps_torch.kernels import ozaki as ko
 from tpeps_torch.kernels.ozaki import ozaki_gemm_twin, ozaki_split_twin, padded_k
 from tpeps_torch.linalg import ozaki as to
+from test_torch_package import one_torch_thread  # noqa: F401  (autouse)
 
 SLICES = [8, 7, 6, 2]
 

@@ -19,7 +19,7 @@ from tpeps_torch.ipeps.ipeps_c4v import symmetrize_c4v
 from tpeps_torch.kernels.cholqr import gram, gram_ridge, trsm_right_lower, trsm_right_lower_h
 from tpeps_torch.kernels.corner import corner_apply
 from tpeps_torch.kernels.epilogue import t_epilogue
-from tpeps_torch.kernels.layer import layer_contract
+from tpeps_torch.kernels.layer import _no_overlap, double_layer, store_order, vector_rows
 from tpeps_torch.kernels.ctm_loop import LoopState, ctm_commit
 from tpeps_torch.kernels.ozaki import ozaki_gemm, ozaki_split
 from tpeps_torch.kernels.eigh_small import eigh_small
@@ -32,6 +32,17 @@ from tpeps_torch.kernels.frozen_generic import (SweepState, generic_epilogue,
 from tpeps_torch.models.j1j2 import J1J2_C4V_BIPARTITE
 
 REPO = Path(__file__).resolve().parent.parent
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch thread for the port's CPU tests (imported by the other
+    ``test_torch_*`` files): the twins run many small operations, which a
+    thread pool only slows down, the more so beside the other test workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def test_import_never_pulls_in_jax():
@@ -77,7 +88,8 @@ def _wrapper_calls(make):
     seg = segment_table([(0, [2, 4])], W.device)
     sstate = SweepState(make((8,)), make((1,)), make((1,)), ctl)
     return {
-        "layer_contract": lambda: layer_contract(W, X, Y, n_k=1),
+        "double_layer": lambda: double_layer(make((2, 2, 2, 2, 2)), make((2, 2, 3, 2, 2, 4)),
+                                             make((2, 2, 2, 2, 3, 4))),
         "corner_apply": lambda: corner_apply(make((12, 12)), P),
         "gram_ridge": lambda: gram_ridge(P, 1e-12),
         "gram": lambda: gram(P, make((12, 4))),
@@ -123,26 +135,75 @@ def test_wrapper_never_sends_other_devices_to_the_twin(name):
         _wrapper_calls(make)[name]()
 
 
-def test_layer_contract_rejects_mismatched_views():
-    W = torch.rand(4, 6, dtype=torch.float64)
-    with pytest.raises(ValueError, match="free axes"):
-        layer_contract(W, torch.rand(6, 5, dtype=torch.float64),
-                       torch.empty(4, 3, dtype=torch.float64), n_k=1)
-    with pytest.raises(ValueError, match="does not match"):
-        layer_contract(W, torch.rand(5, 5, dtype=torch.float64),
-                       torch.empty(4, 5, dtype=torch.float64), n_k=1)
+@pytest.mark.parametrize("shapes,match", [
+    (((2, 2, 3, 2, 2), (2, 2, 3, 2, 2, 4), (2, 2, 2, 2, 3, 4)), "must be \\(d, D, D, D, D\\)"),
+    (((2, 2, 2, 2, 2), (2, 3, 3, 2, 2, 4), (2, 2, 2, 2, 3, 4)), "X6 must be"),
+    (((2, 2, 2, 2, 2), (2, 2, 3, 2, 2, 4), (2, 2, 2, 2, 4, 3)), "out must be"),
+], ids=["a", "X6", "out"])
+def test_double_layer_rejects_mismatched_views(shapes, match):
+    a, X6, out = (torch.rand(s, dtype=torch.float64) for s in shapes)
+    with pytest.raises(ValueError, match=match):
+        double_layer(a, X6, out)
 
 
-def test_layer_contract_twin_writes_through_strided_views():
+@pytest.mark.parametrize("slice_phys", [False, True], ids=["full", "slice_phys"])
+@pytest.mark.parametrize("layout", ["corner", "absorption"])
+def test_double_layer_twin_writes_through_strided_views(layout, slice_phys):
+    """The twin writes through strided output views: the move's layout (the
+    corner's M2[(j,e,f),(i,r,g)] and the absorption's Z[(d,e,f),(p,r,g)],
+    rows padded to an even pitch; the padding is never written) and
+    Z[d,e,f,r,g,p] (i the unit-stride axis)."""
     rng = np.random.RandomState(0)
-    W = torch.from_numpy(rng.rand(6, 4))
-    X = torch.from_numpy(rng.rand(3, 4, 5))  # stored (n0, k, n1)
-    out = torch.zeros(5, 6, 3, dtype=torch.float64)  # stored (n1, p, n0)
-    layer_contract(W, X.permute(1, 0, 2), out.permute(1, 2, 0), n_k=1)
-    ref = np.einsum("pk,akb->bpa", W.numpy(), X.numpy())
-    np.testing.assert_allclose(out.numpy(), ref, rtol=0, atol=1e-14)
-    layer_contract(W, X.permute(1, 0, 2), out.permute(1, 2, 0), n_k=1, accumulate=True)
-    np.testing.assert_allclose(out.numpy(), 2 * ref, rtol=0, atol=1e-14)
+    d, D, nj, ni = 2, 3, 5, 4
+    a = torch.from_numpy(rng.rand(d, D, D, D, D) - 0.5)
+    X6 = torch.from_numpy(rng.rand(D, D, nj, D, D, ni) - 0.5)
+    ref = np.einsum("svmfg,suler,lmjuvi->fgerji", a.numpy(), a.numpy(), X6.numpy())
+    if layout == "corner":
+        n = ni * D * D
+        buf = torch.full((nj * D * D, n + 1), 7.0, dtype=torch.float64)
+        M6 = buf[:, :n].view(nj, D, D, ni, D, D)  # j,e,f,i,r,g
+        out = M6.permute(2, 5, 1, 4, 0, 3)
+    else:
+        buf = torch.full((nj, D, D, D, D, ni), 7.0, dtype=torch.float64)  # d,e,f,r,g,p
+        out = buf.permute(2, 4, 1, 3, 0, 5)
+    double_layer(a, X6, out, slice_phys=slice_phys)
+    np.testing.assert_allclose(out.numpy(), ref, rtol=0, atol=1e-13)
+    if layout == "corner":
+        assert torch.all(buf[:, -1] == 7.0)
+
+
+def test_double_layer_output_overlap_check():
+    n = 12
+    assert _no_overlap(torch.empty(n, n + 1)[:, :n].view(3, 2, 2, 3, 2, 2).permute(2, 5, 1, 4, 0, 3))
+    assert _no_overlap(torch.empty(2, 3, 4).permute(2, 0, 1))
+    assert not _no_overlap(torch.empty(4, 1).expand(4, 3))
+    assert not _no_overlap(torch.empty(8).as_strided((3, 3), (2, 1)))
+
+
+def test_double_layer_store_order():
+    """The kernel writes a finished tile along out's strides, smallest
+    first: (g, r, i, f, e) into the corner's M2[(j,e,f),(i,r,g)], (i, g, r,
+    f, e) into the absorption's Z[d,e,f,r,g,p]."""
+    D, chi = 3, 5
+    n = chi * D * D
+    M6 = torch.empty(n, n + 1)[:, :n].view(chi, D, D, chi, D, D)
+    assert store_order(M6.permute(2, 5, 1, 4, 0, 3)) == (1, 3, 4, 0, 2)
+    Z = torch.empty(chi, D, D, D, D, chi)
+    assert store_order(Z.permute(2, 4, 1, 3, 0, 5)) == (4, 1, 3, 0, 2)
+
+
+def test_double_layer_vector_rows():
+    """The move pads X's i axis to a multiple of 4 (``_row_pitch``), so its
+    rows start 16-byte aligned and the kernel copies them by 16 bytes; an
+    odd pitch takes the 8-byte copies."""
+    from tpeps_torch.ctm.c4v.move_factored import _row_pitch
+
+    D, chi = 3, 9
+    for dtype in (torch.float64, torch.float32):
+        padded = torch.empty(D, D, chi, D, D, _row_pitch(chi), dtype=dtype)[..., :chi]
+        assert vector_rows(padded)
+        assert not vector_rows(torch.empty(D, D, chi, D, D, chi, dtype=dtype))
+    assert _row_pitch(147) == 148 and _row_pitch(148) == 148
 
 
 def test_convert_round_trip_is_exact():

@@ -34,6 +34,7 @@ from tpeps_torch.io.convert import to_torch
 from tpeps_torch.ipeps.ipeps import write_ipeps
 from tpeps_torch.ipeps.ipeps_c4v import IPEPS_C4V, read_ipeps_c4v, symmetrize_c4v
 from tpeps_torch.models.j1j2 import J1J2_C4V_BIPARTITE
+from test_torch_package import one_torch_thread  # noqa: F401  (autouse)
 
 CASES = [(2, 16, 0), (3, 18, 3)]  # (D, chi, seed): seeds that converge in < 50 moves
 IDS = [f"D{D}_chi{chi}" for D, chi, _ in CASES]

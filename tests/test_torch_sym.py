@@ -28,6 +28,7 @@ from tpeps_torch.kernels.blocksparse import PermuteTable, block_permute_twin
 from tpeps_torch.sym import frozen as t_frozen
 from tpeps_torch.sym import io as t_io
 from tpeps_torch.sym import tensor as t_tensor
+from test_torch_package import one_torch_thread  # noqa: F401  (autouse)
 
 CPU = torch.device("cpu")
 PHYS, AUX = {-1: 1, 1: 1}, {-1: 1, 0: 1, 1: 1}

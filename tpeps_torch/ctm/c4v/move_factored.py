@@ -8,12 +8,12 @@ pieces but built layer by layer, and the projector comes from a
 warm-started subspace iteration.  The kernels:
 
 * K1 ``_c2x2_factored``: the corner as the matrix ``M2[(j,e,f),(i,r,g)]``
-  (ket and bra layers: :func:`~tpeps_torch.kernels.layer.layer_contract`);
+  (ket and bra layers in one launch: :func:`~tpeps_torch.kernels.layer.double_layer`);
 * K2 ``_m_apply``: ``Y = M2 @ P`` (:func:`~tpeps_torch.kernels.corner.corner_apply`);
 * K3 ``_subspace_eigh_op``: CholeskyQR2 on
   :mod:`tpeps_torch.kernels.cholqr`, Rayleigh-Ritz with
   :func:`~tpeps_torch.linalg.eigh.eigh_desc`;
-* K4 ``_absorb_T_int`` (layers on ``layer_contract``) and its epilogue
+* K4 ``_absorb_T_int`` (layers on ``double_layer``) and its epilogue
   (:func:`~tpeps_torch.kernels.epilogue.t_epilogue`).
 
 The chi-contractions around the layers (C.T_top, T_left.ct, T.P and the
@@ -41,7 +41,7 @@ import torch
 
 from ...kernels.corner import corner_apply
 from ...kernels.epilogue import t_epilogue
-from ...kernels.layer import layer_contract
+from ...kernels.layer import double_layer
 from ...linalg.eigh import eigh_desc, multiplet_mask
 from ...linalg.ozaki import ozaki_dot_general, ozaki_matmul_presplit, ozaki_presplit
 from ...linalg.power import cholesky_qr2, cold_start_basis, procrustes_align
@@ -94,47 +94,33 @@ def from_int_layout(T_int):
     return T_int.permute(2, 3, 0, 1).reshape(chi, chi, D * D)
 
 
-def _double_layer(a, X6, out, slice_phys: bool):
-    """``out[f,g,e,r,j,i] = sum conj(a)[s,v,m,f,g] a[s,u,l,e,r] X6[l,m,j,u,v,i]``
-    through two layer_contract launches (ket, then bra) per physical slice.
-
-    ``X6`` is any strided (l,m,j,u,v,i) tensor; ``out`` is a view in
-    (f,g,e,r,j,i) order of the caller's output buffer, so the bra launch
-    writes the caller's layout directly.
-    """
-    d, D = a.shape[0], a.shape[1]
-    _, _, nj, _, _, ni = X6.shape
-    Xk = X6.permute(3, 0, 1, 2, 4, 5)  # (u,l) | (m,j,v,i)
-    if not slice_phys:
-        Wk = a.permute(0, 3, 4, 1, 2).reshape(d * D * D, D * D).contiguous()  # (s,e,r) x (u,l)
-        q = torch.empty((d, D, D, D, nj, D, ni), dtype=a.dtype, device=a.device)
-        layer_contract(Wk, Xk, q, n_k=2)  # q[s,e,r,m,j,v,i]
-        Wb = a.conj().permute(3, 4, 0, 1, 2).reshape(D * D, d * D * D).contiguous()
-        layer_contract(Wb, q.permute(0, 5, 3, 1, 2, 4, 6), out, n_k=3)  # (s,v,m) | (e,r,j,i)
-        return out
-    qs = torch.empty((D, D, D, nj, D, ni), dtype=a.dtype, device=a.device)
-    for s in range(d):
-        # a[s] is (u,l,e,r) for the ket and (v,m,f,g) for the bra
-        Wk = a[s].permute(2, 3, 0, 1).reshape(D * D, D * D).contiguous()
-        layer_contract(Wk, Xk, qs, n_k=2)  # qs[e,r,m,j,v,i]
-        Wb = a[s].conj().permute(2, 3, 0, 1).reshape(D * D, D * D).contiguous()
-        layer_contract(Wb, qs.permute(4, 2, 0, 1, 3, 5), out, n_k=2, accumulate=s > 0)
-    return out
+def _row_pitch(chi: int) -> int:
+    """The right chi axis of the layers' input X, padded to a multiple of 4,
+    so that its rows start 16-byte aligned and the kernel copies them by 16
+    bytes; the padding is zero and never read as data."""
+    return -(-chi // 4) * 4
 
 
 def _c2x2_factored(a, C, T_int, slice_phys: bool = False):
     """K1: the enlarged corner as the matrix ``M2[(j,e,f),(i,r,g)]``
     (rows: down-chi, ket, bra; cols: right-chi, ket, bra), which is
-    ``M6[f,g,e,r,j,i]`` of the JAX package with its axes permuted."""
+    ``M6[f,g,e,r,j,i]`` of the JAX package with its axes permuted.  Its
+    rows are padded to an even pitch, so they start 16-byte aligned for
+    K2's copies."""
     D = a.shape[1]
     chi = C.shape[0]
+    n = chi * D * D
+    cp = _row_pitch(chi)
     # top edge (chi0=i right, chi1=y left): ct[x,(u,v,i)] = C[x,y] Tt[u,v,i,y]
-    ct = C @ T_int.permute(3, 0, 1, 2).reshape(chi, D * D * chi)
+    Tt = torch.nn.functional.pad(T_int.permute(3, 0, 1, 2), (0, cp - chi))
+    ct = C @ Tt.reshape(chi, D * D * cp)
     # left edge (chi0=x up, chi1=j down): q1[(l,m,j),(u,v,i)]
     q1 = T_int.permute(0, 1, 3, 2).reshape(D * D * chi, chi) @ ct
-    M2 = torch.empty((chi, D, D, chi, D, D), dtype=a.dtype, device=a.device)  # j,e,f,i,r,g
-    _double_layer(a, q1.view(D, D, chi, D, D, chi), M2.permute(2, 5, 1, 4, 0, 3), slice_phys)
-    return M2.view(chi * D * D, chi * D * D)
+    M2 = torch.empty((n, n + n % 2), dtype=a.dtype, device=a.device)[:, :n]
+    M6 = M2.view(chi, D, D, chi, D, D)  # j,e,f,i,r,g
+    double_layer(a, q1.view(D, D, chi, D, D, cp)[..., :chi], M6.permute(2, 5, 1, 4, 0, 3),
+                 slice_phys)
+    return M2
 
 
 def _c2x2_dots(a, C, T_int, slice_phys: bool, dot_impl: str):
@@ -204,14 +190,21 @@ def _absorb_T_int(a, T_int, P, chi: int, chi_n: int, slice_phys: bool = False):
     """K4 body: ``T' = P^H (T a a*) P`` in internal layout ``T'[k,b,chi',chi']``
     (before the epilogue)."""
     D = a.shape[1]
+    cp = _row_pitch(chi_n)
     # z1[(l,m,d),(u,v,p)] = T[l,m,c,d] P[(c,u,v),p]
-    z1 = T_int.permute(0, 1, 3, 2).reshape(D * D * chi, chi) @ P.reshape(chi, D * D * chi_n)
-    # Z[(d,e,f),(r,g,p)]: rows match P's rows (c,u,v) for the closing product
-    Z = torch.empty((chi, D, D, D, D, chi_n), dtype=a.dtype, device=a.device)  # d,e,f,r,g,p
-    _double_layer(a, z1.view(D, D, chi, D, D, chi_n), Z.permute(2, 4, 1, 3, 0, 5), slice_phys)
-    # nT[(r,g,p), q] = Z^T conj(P): internal layout (k=r, b=g, top=p, bottom=q)
-    nT = Z.view(chi * D * D, D * D * chi_n).transpose(0, 1) @ P.conj()
-    return nT.view(D, D, chi_n, chi_n)
+    P4 = torch.nn.functional.pad(P.reshape(chi, D, D, chi_n), (0, cp - chi_n))
+    z1 = T_int.permute(0, 1, 3, 2).reshape(D * D * chi, chi) @ P4.reshape(chi, D * D * cp)
+    # Z[(d,e,f),(p,r,g)]: rows match P's rows (c,u,v) for the closing product;
+    # laid out as M2 (rows padded to an even pitch), so that the layers'
+    # kernel stores both by the same contiguous (p,r,g) runs
+    n, m = chi * D * D, chi_n * D * D
+    Z = torch.empty((n, m + m % 2), dtype=a.dtype, device=a.device)[:, :m]
+    Z6 = Z.view(chi, D, D, chi_n, D, D)  # d,e,f,p,r,g
+    double_layer(a, z1.view(D, D, chi, D, D, cp)[..., :chi_n], Z6.permute(2, 5, 1, 4, 0, 3),
+                 slice_phys)
+    # nT[(p,r,g), q] = Z^T conj(P) -> internal layout (k=r, b=g, top=p, bottom=q)
+    nT = Z.transpose(0, 1) @ P.conj()
+    return nT.view(chi_n, D, D, chi_n).permute(1, 2, 0, 3).contiguous()
 
 
 @torch.inference_mode()
@@ -221,7 +214,9 @@ def ctm_move_sl_factored(a, C, T_int, P_ref, **move_kwargs):
     Keywords: ``n_power``, ``eps_multiplet``, ``ad_decomp_reg``,
     ``absorb_normalization``; ``slice_phys`` runs the two layers once per
     physical index and accumulates, which halves the largest intermediate at
-    d=2; ``dot_impl="ozaki[:s]"`` runs a real float64 move on Ozaki products
+    d=2, in the CPU twins and on Ozaki products (on the card the fused
+    kernel keeps no intermediate, and both values launch it);
+    ``dot_impl="ozaki[:s]"`` runs a real float64 move on Ozaki products
     (see the module docstring); other dtypes ignore it, as in the JAX package.
     """
     return ctm_move_w(a, C, T_int, P_ref, None, **move_kwargs)[:4]

@@ -25,12 +25,30 @@ from __future__ import annotations
 
 import torch
 
-KERNELS = ("layer_contract", "corner_apply", "gram_ridge", "gram", "trsm_right_lower_h",
+KERNELS = ("double_layer", "corner_apply", "gram_ridge", "gram", "trsm_right_lower_h",
            "trsm_right_lower", "t_epilogue", "polar_unitary", "polar_vjp", "eigh_small",
            "ozaki_split", "ozaki_gemm", "ctm_commit", "block_permute", "block_gemm",
            "frozen_commit", "frozen_epilogue_vjp", "adjoint_commit", "block_permute_grad",
            "block_gemm_grad", "generic_epilogue", "sweep_commit", "generic_epilogue_vjp")
 LAUNCHES = dict.fromkeys(KERNELS, 0)
+
+
+ARRIVAL_COUNTERS = 4096  # per device: the Gram's and K2's last-arriver counters
+_COUNTERS: dict = {}
+
+
+def arrival_counters(device) -> torch.Tensor:
+    """The device's integer arrival counters of the kernels that sum a split
+    in their last-arriving block (K3's Gram, K2's split-K): zero when made,
+    and every launch leaves them zero again, so launches on one stream share
+    them."""
+    c = _COUNTERS.get(device)
+    if c is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("arrival counters: call a kernel once on this device before "
+                               "capturing a graph")
+        c = _COUNTERS[device] = torch.zeros(ARRIVAL_COUNTERS, dtype=torch.int32, device=device)
+    return c
 
 
 def reset_launch_counts() -> None:

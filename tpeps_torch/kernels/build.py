@@ -22,7 +22,7 @@ from pathlib import Path
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-SOURCES = ("layer_contract.cu", "corner_apply.cu", "cholqr.cu", "t_epilogue.cu", "polar.cu",
+SOURCES = ("double_layer.cu", "corner_apply.cu", "cholqr.cu", "t_epilogue.cu", "polar.cu",
            "eigh_small.cu", "ozaki.cu", "ctm_commit.cu", "block_sparse.cu", "frozen_commit.cu",
            "frozen_generic.cu")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -31,10 +31,10 @@ NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas"
 _vp, _i, _i64, _d = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_double
 # name -> argtypes; every function returns a cudaError_t as int
 _SIGNATURES = {
-    "tpeps_layer_contract_f64": (_vp, _vp, _vp, _vp, _i, _vp),
-    "tpeps_layer_contract_f32": (_vp, _vp, _vp, _vp, _i, _vp),
-    "tpeps_corner_apply_f64": (_vp, _vp, _vp, _i, _i, _vp),
-    "tpeps_corner_apply_f32": (_vp, _vp, _vp, _i, _i, _vp),
+    "tpeps_double_layer_f64": (_vp,) * 6,
+    "tpeps_double_layer_f32": (_vp,) * 6,
+    "tpeps_corner_apply_f64": (_vp, _i64, _vp, _vp, _vp, _i64, _vp, _i, _i, _i, _vp),
+    "tpeps_corner_apply_f32": (_vp, _i64, _vp, _vp, _i, _i, _vp),
     "tpeps_gram_clusters_f64": (_vp, _vp, _vp, _vp, _i, _vp, _i, _i, _i, _d, _i, _vp),
     "tpeps_gram_clusters_f32": (_vp, _vp, _vp, _vp, _i, _vp, _i, _i, _i, _d, _i, _vp),
     "tpeps_trsm_right_lower_h_f64": (_vp, _vp, _vp, _i, _i, _vp),
@@ -81,6 +81,7 @@ _SIGNATURES = {
 # name -> argtypes of the size queries, which return int64
 _SIZE_QUERIES = {
     "tpeps_polar_smem": (_i, _i),
+    "tpeps_corner_apply_scratch_f64": (_i, _i),
     "tpeps_gram_scratch_f64": (_i, _i, _i, _i),
     "tpeps_gram_scratch_f32": (_i, _i, _i, _i),
 }

@@ -6,12 +6,10 @@ from __future__ import annotations
 
 import torch
 
-from . import LAUNCHES, require_contiguous, route, stream_of, suffix
+from . import LAUNCHES, arrival_counters, require_contiguous, route, stream_of, suffix
 from .build import library
 
 TRSM_MAX_K = 256  # the solves' widest L (csrc/cholqr.cu: a 64-row tile and two panels fit)
-GRAM_COUNTERS = 4096  # the Gram's arrival counters per device (csrc/cholqr.cu plans their use)
-_COUNTERS: dict = {}
 
 
 def gram_ridge_twin(P, eps: float = 0.0):
@@ -26,17 +24,6 @@ def gram_twin(A, B):
     return A.mH @ B
 
 
-def _counters(device):
-    """The device's arrival counters: zero when made, and every launch
-    leaves them zero again."""
-    c = _COUNTERS.get(device)
-    if c is None:
-        if torch.cuda.is_current_stream_capturing():
-            raise RuntimeError("gram: call it once on this device before capturing a graph")
-        c = _COUNTERS[device] = torch.zeros(GRAM_COUNTERS, dtype=torch.int32, device=device)
-    return c
-
-
 def _launch_gram(name: str, A, B, eps: float, sym: bool):
     """One launch of the Gram kernel; its launcher plans the grid, and says
     how much scratch the plan needs on this card."""
@@ -44,7 +31,7 @@ def _launch_gram(name: str, A, B, eps: float, sym: bool):
     kb = B.shape[1]
     lib = library()
     sfx = suffix(A)
-    counters = _counters(A.device)
+    counters = arrival_counters(A.device)
     with torch.cuda.device(A.device):
         scratch = getattr(lib.cdll, f"tpeps_gram_scratch_{sfx}")(n, ka, kb, int(sym))
         lib.check(int(-min(scratch, 0)), name)

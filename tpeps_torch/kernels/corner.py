@@ -5,7 +5,7 @@ from __future__ import annotations
 
 import torch
 
-from . import LAUNCHES, require_contiguous, route, stream_of, suffix
+from . import LAUNCHES, arrival_counters, require_contiguous, route, stream_of, suffix
 from .build import library
 
 
@@ -14,18 +14,30 @@ def corner_apply_twin(M2, P):
 
 
 def corner_apply(M2, P):
-    """``Y = M2 @ P`` with ``M2`` (n, n) and ``P`` (n, m)."""
+    """``Y = M2 @ P`` with ``M2`` (n, n), row-major with any row pitch, and
+    ``P`` (n, m) contiguous."""
     if M2.dim() != 2 or P.dim() != 2 or M2.shape[0] != M2.shape[1] or M2.shape[1] != P.shape[0]:
         raise ValueError(f"corner_apply: shapes {tuple(M2.shape)} @ {tuple(P.shape)}")
     if not route("corner_apply", M2, P):
         return corner_apply_twin(M2, P)
-    require_contiguous("corner_apply", M2=M2, P=P)
     n, m = P.shape
+    if n > 1 and (M2.stride(1) != 1 or M2.stride(0) < n):
+        raise ValueError(f"corner_apply: M2 must be row-major, got strides {M2.stride()}")
+    require_contiguous("corner_apply", P=P)
     Y = torch.empty((n, m), dtype=P.dtype, device=P.device)
     lib = library()
     with torch.cuda.device(P.device):
-        err = getattr(lib.cdll, f"tpeps_corner_apply_{suffix(P)}")(
-            M2.data_ptr(), P.data_ptr(), Y.data_ptr(), n, m, stream_of(P))
+        if P.dtype == torch.float64:
+            scratch = lib.cdll.tpeps_corner_apply_scratch_f64(n, m)
+            lib.check(int(-min(scratch, 0)), "corner_apply")
+            part = torch.empty(max(scratch, 1), dtype=P.dtype, device=P.device)
+            counters = arrival_counters(P.device)
+            err = lib.cdll.tpeps_corner_apply_f64(
+                M2.data_ptr(), M2.stride(0), P.data_ptr(), Y.data_ptr(), part.data_ptr(),
+                part.numel(), counters.data_ptr(), counters.numel(), n, m, stream_of(P))
+        else:
+            err = getattr(lib.cdll, f"tpeps_corner_apply_{suffix(P)}")(
+                M2.data_ptr(), M2.stride(0), P.data_ptr(), Y.data_ptr(), n, m, stream_of(P))
     lib.check(err, "corner_apply")
     LAUNCHES["corner_apply"] += 1
     return Y
