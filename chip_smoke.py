@@ -6,8 +6,9 @@ with one CUDA card and ``nvcc`` (CUDA_HOME, PATH or the toolkit's default
 prefix).  It needs no network and no JAX.  ``python3 chip_smoke.py --ablate
 [--parent DIR] [--only PARTS]`` runs phases 0 and 1 and then only
 :func:`ablate`, the timing breakdown of K1's fused double layer, K2's
-corner apply, K3's Gram and solves, K7's ``ozaki_gemm`` and ``eigh_small``
-(with a parent checkout: its kernels and its graphed move beside these).
+corner apply, K3's Gram and solves, K6's polar factor and its VJP, K7's
+``ozaki_gemm`` and ``eigh_small`` (with a parent checkout: its kernels, its
+cold start and its graphed move beside these).
 
 Phases (any failed check exits non-zero; there is no CPU fallback):
 
@@ -21,9 +22,11 @@ Phases (any failed check exits non-zero; there is no CPU fallback):
    the physical-index slicing (:func:`fused_checks`: K1 also at both call
    sites' layouts at chi = 155 and 169 and with chi_n != chi, K2 at n and m
    that are no multiples of its tiles and at chi = 155 and 169, two calls
-   bit-identical), K6 on a near-orthogonal overlap from the
-   D=7 path and on a random well-conditioned one, and with its Jacobi
-   sweeps capped below convergence (the guard must give I); kernel, twin and
+   bit-identical), K6 (:func:`polar_checks`: the overlaps of moves 1, 4 and
+   31 of the D=7 path and a random well-conditioned one against the twin,
+   graded overlaps against their exact U V^T, singular and ridged singular
+   ones and a run capped short of convergence giving I, k = 169 and 192,
+   the VJP at k = chi and 169); kernel, twin and
    library times from CUDA events, and each kernel's bound: the bytes its
    function must move at 3.35 TB/s or its FP64 operations at 67 TFLOP/s on
    the tensor cores (34 TFLOP/s off them, elementwise work), counting only
@@ -43,7 +46,8 @@ Phases (any failed check exits non-zero; there is no CPU fallback):
    (RandomState(0), C4v-symmetrized), init_env("CTMRG"), run_ctmrg
    (max_iter=48, conv_tol=1e-8, n_power=2), energy_1x1_lowmem (j2=0.3)
    and eval_obs.  Every forward kernel must have launched, the energy must
-   be finite.  Then 4 moves of the same path with the twins (K6 included),
+   be finite; K6's calls by Newton-Schulz steps (one read of the card's
+   histogram, as after phase 5 and phase 7(e)).  Then 4 moves of the same path with the twins (K6 included),
    against 4 moves with the kernels.
 4. D=2, chi=16 end to end on the card and on the CPU (twins): energies
    agree to 1e-10.
@@ -238,6 +242,9 @@ LARGE_D = ("ozaki_split", "ozaki_gemm", "ctm_commit")
 OZ_MOVE_SPEC_TOL, OZ_MOVE_ENV_TOL = 1e-11, 1e-10
 GRAPH_SPEC_TOL, MOVES_PER_SYNC = 1e-12, 4
 EIGH_BIG = 169  # eigh_small's largest k, the factored move's largest chi on the card
+# K6: its largest k (one cluster of 12 blocks) and the graded overlaps'
+# sigma_max/sigma_min
+K6_MAX_K, K6_GRADED = 192, (1e2, 1e4, 1e6, 1e8, 1e9)
 # the mixed driver against the float64 driver for as many moves from the same
 # start (neither converged): one reading on the H100 gave |dE| 1.3e-10 and
 # spectra 3.6e-7 apart
@@ -381,6 +388,33 @@ def twins_on_card():
         yield
     if LAUNCHES != before:
         fail(f"a kernel launched on the twin path: {before} -> {LAUNCHES}")
+
+
+K6_STEPS: dict = {}  # K6's calls by Newton-Schulz steps in each run (phases 3, 5, 7(e))
+
+
+def k6_steps_reset(dev) -> None:
+    if dev.type == "cuda":
+        from tpeps_torch.kernels.polar import polar_stats
+
+        polar_stats(dev).zero_()
+
+
+def k6_steps_read(dev, run: str) -> dict:
+    """K6's calls since :func:`k6_steps_reset` by the Newton-Schulz steps they
+    took (one read of the histogram the kernel accumulates on the card),
+    printed and kept for the JSON record."""
+    if dev.type != "cuda":
+        return {}
+    from tpeps_torch.kernels.polar import polar_stats
+
+    h = polar_stats(dev).tolist()
+    out = {str(s): n for s, n in enumerate(h[:-1]) if n}
+    if h[-1]:
+        out["not converged"] = h[-1]
+    K6_STEPS[run] = out
+    print(f"  K6 polar_unitary calls by steps ({run}): {out}")
+    return out
 
 
 def bench_state(D_, device, dtype=torch.float64, seed=0):
@@ -587,6 +621,121 @@ def fused_checks(a, tol, tag, gen, dev) -> dict:
     return out_ms
 
 
+def exact_polar(O):
+    """``U V^T`` from an SVD of ``O`` in float64: the polar factor to about
+    eps cond(O)."""
+    U, _, Vh = torch.linalg.svd(O.double())
+    return U @ Vh
+
+
+def polar_checks(overlaps, dtype, gen, dev) -> dict:
+    """K6 in ``dtype`` (the overlaps built in float64, rounded): on the
+    overlaps of moves 1, 4 and 31 of the D=7 path and a random
+    well-conditioned one, against the twin (``TOL``; on move 1 only where the
+    two guards agree), two calls bit-identical; in float64 on graded
+    overlaps ``U diag(s) V^T`` (QR of seeded matrices, sigma_min/sigma_max
+    from 1e-2 to 1e-9) at k = chi, chi + 8 and 169, against the exact ``U
+    V^T`` within ``1e-13 sigma_max/sigma_min`` (the twin's error, ~eps
+    cond^2, printed beside it) and at k = 192 against the twin; on an
+    exactly singular and a ridged singular overlap (W = I, as the twin);
+    capped one step short of convergence (W = I); k = 193 refused; and
+    ``polar_vjp`` against its twin at k = chi and 169.  In float64, each
+    overlap's steps and its time in CUDA graphs."""
+    from tpeps_torch.kernels import polar
+
+    tol, tag = TOL[dtype], str(dtype).replace("torch.", "")
+    info = torch.zeros(5, dtype=torch.int32, device=dev)
+    eye = lambda k: torch.eye(k, dtype=dtype, device=dev)
+    rnd_q = lambda k: torch.linalg.qr(torch.randn(k, k, generator=gen, device=dev,
+                                                  dtype=torch.float64)).Q
+    out = {"steps": {}, "graph_ms": {}}
+    for label, O64 in overlaps.items():
+        O = O64.to(dtype).contiguous()
+        W1 = polar.polar_unitary(O, info=info)
+        steps, conv, kept, finite, near = info.tolist()
+        W2, Wt = polar.polar_unitary(O), polar.polar_unitary_twin(O)
+        twin_kept = not torch.equal(Wt, eye(CHI))
+        sv = torch.linalg.svdvals(O64)
+        e, e_x = rel_err(W1, Wt), rel_err(W1.double(), exact_polar(O.double()))
+        what = (f"K6 polar_unitary {tag}, O of {label} (sigma_min/sigma_max "
+                f"{float(sv[-1] / sv[0]):.2e}; {steps} steps, converged {conv}, finite {finite}, "
+                f"||O^T O - I||_F < 0.9: {near}; W kept: kernel {kept}, twin {int(twin_kept)})")
+        if label == "move 1" and bool(kept) != twin_kept:
+            print(f"  [note] {what}: the guards decided differently")
+        else:
+            check(bool(kept) == twin_kept and e <= tol and torch.equal(W1, W2),
+                  f"{what}: rel err against the twin {e:.2e} <= {tol:.0e} (against U V^T "
+                  f"{e_x:.2e}), two calls bit-identical")
+        if dtype == torch.float64:
+            out["steps"][label] = steps
+            out["graph_ms"][label] = graph_ms(lambda: polar.polar_unitary(O), 10, 3)
+    O4 = overlaps["move 4"].to(dtype).contiguous()
+    polar.polar_unitary(O4, info=info)
+    short = max(int(info[0]) - 1, 1)
+    W = polar.polar_unitary(O4, info=info, max_steps=short)
+    check(not int(info[1]) and torch.equal(W, eye(CHI)),
+          f"K6 polar_unitary {tag}, move 4's O capped at {short} steps: not converged "
+          f"(converged={int(info[1])}), W = I")
+    # an orthogonal block beside three null directions (exact in O^T O, so
+    # the twin's eigh sees w_min <= 1e-24 w_max), and the same ridged
+    Q = torch.zeros(CHI, CHI, dtype=torch.float64, device=dev)
+    Q[:-3, :-3] = rnd_q(CHI - 3)
+    for label, O in (("exactly singular", Q), ("ridged singular", Q + 1e-12 * torch.eye(
+            CHI, dtype=torch.float64, device=dev))):
+        O = O.to(dtype).contiguous()
+        W = polar.polar_unitary(O, info=info)
+        check(torch.equal(W, eye(CHI)) and torch.equal(polar.polar_unitary_twin(O), eye(CHI)),
+              f"K6 polar_unitary {tag}, {label} O: W = I ({int(info[0])} steps, converged "
+              f"{int(info[1])}), the twin's too")
+    if dtype == torch.float64:
+        for k in (CHI, CHI + 8, EIGH_BIG):
+            for cond in K6_GRADED:
+                U, V = rnd_q(k), rnd_q(k)
+                s_ = torch.logspace(0, -math.log10(cond), k, dtype=torch.float64, device=dev)
+                O = ((U * s_) @ V.mT).contiguous()
+                X = U @ V.mT
+                W = polar.polar_unitary(O, info=info)
+                e_k, e_t = rel_err(W, X), rel_err(polar.polar_unitary_twin(O), X)
+                check(e_k <= 1e-13 * cond,
+                      f"K6 polar_unitary {tag}, graded U diag(s) V^T, k={k}, sigma_max/sigma_min "
+                      f"{cond:.0e} ({int(info[0])} steps): rel err against U V^T {e_k:.2e} <= "
+                      f"{1e-13 * cond:.0e} (the twin's {e_t:.2e})")
+        # near the guard's edge: sigma_max/sigma_min 3e9 at k = chi
+        U, V = rnd_q(CHI), rnd_q(CHI)
+        s_ = torch.logspace(0, -math.log10(3e9), CHI, dtype=torch.float64, device=dev)
+        O_edge = ((U * s_) @ V.mT).contiguous()
+        polar.polar_unitary(O_edge, info=info)
+        out["steps"]["graded, sigma_max/sigma_min 3e9"] = int(info[0])
+        out["graph_ms"]["graded, sigma_max/sigma_min 3e9"] = graph_ms(
+            lambda: polar.polar_unitary(O_edge), 10, 3)
+        O = well_conditioned(K6_MAX_K, gen, dtype, dev)
+        W = polar.polar_unitary(O, info=info)
+        e = rel_err(W, polar.polar_unitary_twin(O))
+        check(e <= tol, f"K6 polar_unitary {tag}, random well-conditioned k={K6_MAX_K} (a cluster "
+                        f"of {K6_MAX_K // 16}, {int(info[0])} steps): rel err {e:.2e} <= {tol:.0e}")
+        try:
+            polar.polar_unitary(well_conditioned(K6_MAX_K + 1, gen, dtype, dev))
+            refused = ""
+        except ValueError as exc:
+            refused = str(exc)
+        check(str(K6_MAX_K) in refused, f"K6 polar_unitary at k={K6_MAX_K + 1} refused: {refused!r}")
+    for k in (CHI, EIGH_BIG):
+        W = polar.polar_unitary(well_conditioned(k, gen, dtype, dev))
+        Wb = torch.randn(k, k, generator=gen, device=dev, dtype=dtype)
+        O1, O2 = polar.polar_vjp(W, Wb), polar.polar_vjp(W, Wb)
+        e = rel_err(O1, polar.polar_vjp_twin(W, Wb))
+        check(e <= tol and torch.equal(O1, O2),
+              f"K6 polar_vjp {tag} k={k}: rel err {e:.2e} <= {tol:.0e}, two calls bit-identical")
+        if k == CHI:
+            out["graph_ms"][f"polar_vjp {tag}"] = graph_ms(lambda: polar.polar_vjp(W, Wb))
+            out["graph_ms"][f"polar_vjp twin {tag}"] = graph_ms(
+                lambda: polar.polar_vjp_twin(W, Wb))
+    if out["graph_ms"]:
+        print(f"  K6 {tag} in CUDA graphs: " + ", ".join(
+            f"{lbl} {ms * 1000:.1f} us" for lbl, ms in out["graph_ms"].items()))
+    return out if dtype == torch.float64 else {}
+
+
 def phase2(dev) -> dict:
     """Kernel vs twin at the slice's shapes; returns per-kernel records."""
     print(f"== phase 2: kernels vs twins at D={D}, chi={CHI}", flush=True)
@@ -688,45 +837,11 @@ def phase2(dev) -> dict:
                 solve_checks(label, L0, P0, dtype)
             # K6's overlaps come from the float64 path, rounded for float32
             if dtype == torch.float64:
-                overlaps = (near_unitary_overlap(a, env.C, T_int),
-                            near_unitary_overlap(a, env.C, T_int, n_moves=30),
-                            near_unitary_overlap(a, env.C, T_int, n_moves=0),
-                            well_conditioned(CHI, gen, dtype, dev))
-            O_path, O_late, O_cold, O_rand = (O.to(dtype) for O in overlaps)
-            info = torch.zeros(5, dtype=torch.int32, device=dev)
-            for label, O in (("O of move 4 of the D=7 path", O_path),
-                             ("O of move 31 of the D=7 path", O_late),
-                             ("random well-conditioned O", O_rand)):
-                W = polar.polar_unitary(O, info=info)
-                e = rel_err(W, polar.polar_unitary_twin(O))
-                sweeps, conv, cond_ok, finite, ns = info.tolist()
-                branch = "Newton-Schulz" if ns else f"Jacobi, {sweeps} sweeps, converged={bool(conv)}"
-                check(e <= tol, f"K6 polar_unitary {tag}, {label}: rel err {e:.2e} <= {tol:.0e} "
-                                f"({branch}, well-conditioned={bool(cond_ok)}, finite={bool(finite)})")
-            # the Jacobi branch on the cold-start overlap of the first move
-            # (near the guard's threshold the two eigensolvers may decide
-            # differently; that case is held to phase 3's spectrum check)
-            W = polar.polar_unitary(O_cold, info=info)
-            Wt = polar.polar_unitary_twin(O_cold)
-            sweeps, conv, cond_ok, finite, ns = info.tolist()
-            twin_ok = not torch.equal(Wt, torch.eye(CHI, dtype=dtype, device=dev))
-            e = rel_err(W, Wt)
-            what = (f"K6 polar_unitary {tag}, cold-start O (Jacobi branch: {not ns}, {sweeps} "
-                    f"sweeps; guards pass: kernel {bool(cond_ok and finite)}, twin {twin_ok})")
-            if bool(cond_ok and finite) == twin_ok:
-                check(e <= tol, f"{what}: rel err {e:.2e} <= {tol:.0e}")
-            else:
-                print(f"  [note] {what}: the guards decided differently")
-            # the Jacobi branch capped at one sweep does not converge: I
-            W = polar.polar_unitary(O_path, info=info, max_sweeps=1)
-            sweeps, conv, _, _, ns = info.tolist()
-            check(not ns and not conv and torch.equal(W, torch.eye(CHI, dtype=dtype, device=dev)),
-                  f"K6 polar_unitary {tag}, Jacobi capped at 1 sweep: not converged "
-                  f"(converged={bool(conv)}), W = I")
-            W = polar.polar_unitary(O_path)
-            Wb = torch.randn(CHI, CHI, generator=gen, device=dev, dtype=dtype)
-            e = rel_err(polar.polar_vjp(W, Wb), polar.polar_vjp_twin(W, Wb))
-            check(e <= tol, f"K6 polar_vjp {tag}: rel err {e:.2e} <= {tol:.0e}")
+                overlaps = {"move 1": near_unitary_overlap(a, env.C, T_int, n_moves=0),
+                            "move 4": near_unitary_overlap(a, env.C, T_int),
+                            "move 31": near_unitary_overlap(a, env.C, T_int, n_moves=30),
+                            "random well-conditioned": well_conditioned(CHI, gen, dtype, dev)}
+            k6 = polar_checks(overlaps, dtype, gen, dev)
             rec.setdefault("double_layer", {})[f"checks_{tag}"] = fused_checks(a, tol, tag,
                                                                               gen, dev)
             if dtype != torch.float64:
@@ -748,20 +863,13 @@ def phase2(dev) -> dict:
 
             nT_raw = mf._absorb_T_int(a, T_int, P, CHI, CHI)
             n, k = Pm.shape
-            # K6 is timed on the overlap of move 31 (the Newton-Schulz branch,
-            # which most moves take) and on move 4's (the Jacobi branch of the
-            # first moves).  Its bound is the function's, whichever branch:
-            # the symmetric Gram O^T O (k^3), the symmetric V f(w) V^T (k^3)
-            # and O times it (2 k^3); the eigendecomposition is not counted
-            branches = set()
-            for O in (O_late, O_path):
-                polar.polar_unitary(O, info=info)
-                sweeps, ns = int(info[0]), int(info[4])
-                branches.add(ns)
-                print(f"  polar_unitary on the overlap of move {31 if O is O_late else 4}: "
-                      + ("Newton-Schulz branch" if ns else f"Jacobi branch, {sweeps} sweeps"))
-            check(branches == {0, 1}, "K6 timed on both branches")
-            jac_ms = min(cuda_ms(lambda: polar.polar_unitary(O_path)) for _ in range(2))
+            # K6 is timed eagerly on the overlap of move 31 (the late moves) and
+            # in CUDA graphs on every overlap (polar_checks).  Its bound is the
+            # function's: the symmetric Gram O^T O (k^3), the symmetric V f(w)
+            # V^T (k^3) and O times it (2 k^3), whatever the method
+            O_late = overlaps["move 31"]
+            W = polar.polar_unitary(overlaps["move 4"])
+            Wb = torch.randn(CHI, CHI, generator=gen, device=dev, dtype=dtype)
             cols = D * D * CHI * CHI  # the free (e,r,j,i) / (m,j,v,i) axes of a layer
             cases = {  # name: (kernel, twin, library call or None, bytes, flops, peak)
                 "double_layer": (lambda: layer.double_layer(a, X6, out6),
@@ -799,8 +907,7 @@ def phase2(dev) -> dict:
             }
             for name, case in cases.items():
                 time_case(rec, name, *case)
-            rec["polar_unitary"]["ms_jacobi_branch"] = jac_ms
-            print(f"  polar_unitary, Jacobi branch (move 4's overlap): kernel {jac_ms:.3f} ms")
+            rec["polar_unitary"].update(k6)
             del M2b, q1, X6
     for name, shapes in gram_shapes.items():
         rec[name]["shapes"] = shapes
@@ -822,12 +929,14 @@ def phase3(dev) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
+    k6_steps_reset(dev)
     t0 = time.perf_counter()
     env, n_iter, dist, _ = mf.run_ctmrg(a, env0, max_iter=MAX_ITER, conv_tol=CONV_TOL,
                                         n_power=N_POWER, timers=timers)
     torch.cuda.synchronize()
     t_ctm = time.perf_counter() - t0
     counts = launch_counts()
+    k6_steps_read(dev, "forward slice")
     peak_ctm = torch.cuda.max_memory_allocated()
     t1 = time.perf_counter()
     energy = float(model.energy_1x1_lowmem(a, env))
@@ -930,11 +1039,13 @@ def phase5(dev) -> dict:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_launch_counts()
+        k6_steps_reset(dev)
         t0 = time.perf_counter()
         e_fin, _, _, hist = optimize_c4v(cfg, model, energy, A0, grad_stats=stats)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = launch_counts()
+        k6_steps_read(dev, "training slice")
     peak = torch.cuda.max_memory_allocated()
     for i, (st, loss) in enumerate(zip(stats, closure_losses)):
         print(f"  gradient {i}: loss {loss:.12f}, forward {st['fwd_moves']} moves "
@@ -1345,12 +1456,14 @@ def phase7(dev) -> tuple:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
+    k6_steps_reset(dev)
     t0 = time.perf_counter()
     env, n, dist = mf.run_ctmrg_mixed(a, env0, max_iter=MAX_ITER, conv_tol=CONV_TOL,
                                       slice_phys=True, moves_per_sync=MOVES_PER_SYNC, stats=stats)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = launch_counts()
+    k6_steps_read(dev, "large-D slice")
     peak = torch.cuda.max_memory_allocated()
     for st in stats:
         print(f"  {st['phase']}: {st['moves']} moves, dist {st['dist']:.3e}, "
@@ -2477,9 +2590,10 @@ def phase10(dev) -> tuple:
 
 
 # what each -DTPEPS_ABLATE bit leaves out (csrc/cholqr.cu, csrc/ozaki.cu,
-# csrc/eigh_small.cu, csrc/double_layer.cu, csrc/corner_apply.cu); the copies
-# of eigh_small.cu run every sweep (64), as many as the whole kernel needed; a
-# string key is a define of its own (K2's DMMA shape)
+# csrc/eigh_small.cu, csrc/double_layer.cu, csrc/corner_apply.cu,
+# csrc/polar.cu); the copies of eigh_small.cu run every sweep (64) and those
+# of polar.cu every step (8), as many as the whole kernel needed; a string key
+# is a define of its own (K2's DMMA shape, K6's prefetch depth)
 ABLATIONS = {"cholqr.cu": {0: "whole", 1: "no loads", 2: "no MMAs", 3: "no loads, no MMAs",
                            4: "no k loop", 8: "no panel updates", 16: "no substitutions",
                            24: "no panel updates, no substitutions",
@@ -2501,14 +2615,23 @@ ABLATIONS = {"cholqr.cu": {0: "whole", 1: "no loads", 2: "no MMAs", 3: "no loads
                                  "-DTPEPS_K2_MMA_K=16": "m16n8k16",
                                  "-DTPEPS_K2_WM=2": "64-row tiles",
                                  "-DTPEPS_K2_WM=3": "96-row tiles",
-                                 "-DTPEPS_K2_STAGES=3": "3 stages"}}
+                                 "-DTPEPS_K2_STAGES=3": "3 stages"},
+             "polar.cu": {0: "whole", 8: "every step to the cap", 9: "no exchange",
+                          10: "no products", 13: "no exchange, no step barrier",
+                          16: "no staging", 32: "no gather",
+                          "-DTPEPS_POLAR_DEPTH=3": "12 k-steps of loads in flight"}}
 ABLATE_KERNELS = ("gram_kernel", "ozaki_gemm_kernel", "trsm_kernel", "block_jacobi",
                   "double_layer_kernel", "corner_dmma_kernel", "layer_dmma_kernel",
-                  "dmma_gemm_kernel")
+                  "dmma_gemm_kernel", "polar_kernel", "polar_vjp_kernel")
 # the parts of ablate(): the sources each builds, and those of the parent it needs
 ABLATE_GROUPS = {"gram": ("cholqr.cu",), "ozaki": ("ozaki.cu",), "solves": ("cholqr.cu",),
-                 "eigh": ("eigh_small.cu",), "fused": ("double_layer.cu", "corner_apply.cu")}
-ABLATE_PARENT = {"solves": ("cholqr.cu",), "fused": ("layer_contract.cu", "corner_apply.cu")}
+                 "eigh": ("eigh_small.cu",), "fused": ("double_layer.cu", "corner_apply.cu"),
+                 "polar": ("polar.cu",)}
+# the parent's sources each part times, and the sources linked with each
+# (the parent's polar.cu calls the Gram of its cholqr.cu)
+ABLATE_PARENT = {"solves": ("cholqr.cu",), "fused": ("layer_contract.cu", "corner_apply.cu"),
+                 "polar": ("polar.cu",)}
+PARENT_LINKED = {"polar.cu": ("cholqr.cu",)}
 
 
 class ParentLayerGeom(ctypes.Structure):
@@ -2537,7 +2660,8 @@ def parent_layer_geom(W, X, Y, n_k):
 
 def ablate(parent=None, only=None) -> dict:
     """Where the time of K3's Gram and solves, K7's ``ozaki_gemm``,
-    ``eigh_small``, K1's fused double layer and K2's corner apply goes: each
+    ``eigh_small``, K1's fused double layer, K2's corner apply and K6
+    (:func:`ablate_polar`) goes: each
     source built again with one part of its kernel left out
     (``-DTPEPS_ABLATE``, one nvcc each, all started together), each copy's
     ptxas registers, and each called through its C entry on the same seeded
@@ -2550,12 +2674,13 @@ def ablate(parent=None, only=None) -> dict:
     of moves 4 and 31 of the D=7 path and on dense random H of k = 169 and
     64 beside ``torch.linalg.eigh``; K1 and K2 (:func:`ablate_fused`).  With
     ``parent``, the root of another checkout, its ``cholqr.cu``,
-    ``layer_contract.cu`` and ``corner_apply.cu`` are built too and its
-    solves, layers and corner apply timed first and last in the same turns
-    (parent, change, change, parent), and the graphed move is timed in each
-    checkout (:func:`move_compare`).  ``only`` names the parts to run
-    (:data:`ABLATE_GROUPS`).  Run by ``chip_smoke.py --ablate [--parent DIR]
-    [--only gram,ozaki,solves,eigh,fused]``."""
+    ``layer_contract.cu``, ``corner_apply.cu`` and ``polar.cu`` are built too
+    and its solves, layers, corner apply and K6 timed first and last in the
+    same turns (parent, change, change, parent), and the cold start and the
+    graphed move are timed in each checkout (:func:`move_compare`).
+    ``only`` names the parts to run (:data:`ABLATE_GROUPS`).  Run by
+    ``chip_smoke.py --ablate [--parent DIR]
+    [--only gram,ozaki,solves,eigh,fused,polar]``."""
     from tpeps_torch.kernels import build as kb
 
     groups = tuple(ABLATE_GROUPS) if only is None else tuple(only)
@@ -2566,7 +2691,7 @@ def ablate(parent=None, only=None) -> dict:
     nvcc, procs = kb.find_nvcc(), {}
     srcs = {src for grp in groups for src in ABLATE_GROUPS[grp]}
     builds = {(src, key): (key if isinstance(key, str) else f"-DTPEPS_ABLATE={key}", label,
-                           kb.CSRC_DIR / src)
+                           (kb.CSRC_DIR / src,))
               for src, variants in ABLATIONS.items() if src in srcs
               for key, label in variants.items()}
     if parent is not None:
@@ -2575,12 +2700,13 @@ def ablate(parent=None, only=None) -> dict:
                 path = Path(parent) / "tpeps_torch" / "csrc" / src
                 if src == "layer_contract.cu" and not path.exists():  # a parent after PR 9
                     src, path = "double_layer.cu", path.with_name("double_layer.cu")
-                builds[src, "parent"] = ("-DTPEPS_ABLATE=0", "parent", path)
+                linked = tuple(path.with_name(x) for x in PARENT_LINKED.get(src, ()))
+                builds[src, "parent"] = ("-DTPEPS_ABLATE=0", "parent", (path, *linked))
     try:
-        for (src, key), (flag, _, path) in builds.items():
+        for (src, key), (flag, _, paths) in builds.items():
             tag = re.sub(r"\W+", "_", str(key))
             so = out_dir / f"{Path(src).stem}_{tag}.so"
-            cmd = [nvcc, *kb.NVCC_FLAGS, *flag.split(), "-shared", str(path), "-o", str(so)]
+            cmd = [nvcc, *kb.NVCC_FLAGS, *flag.split(), "-shared", *map(str, paths), "-o", str(so)]
             procs[src, key] = (so, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                                     stderr=subprocess.STDOUT, text=True))
         libs = {}
@@ -2614,10 +2740,12 @@ def ablate(parent=None, only=None) -> dict:
         return torch.cuda.current_stream(dev).cuda_stream
 
     rec = {}
+    if "polar" in groups:
+        rec.update(ablate_polar(libs, in_turns, stream, dev, parent is not None))
+    if parent is not None and {"fused", "polar"} & set(groups):
+        rec["move"] = move_compare(parent)
     if "fused" in groups:
         rec.update(ablate_fused(libs, in_turns, stream, dev, parent is not None))
-        if parent is not None:
-            rec["move"] = move_compare(parent)
     if "solves" in groups:
         rec.update(ablate_solves(libs, in_turns, stream, dev, parent is not None))
     if "eigh" in groups:
@@ -2763,6 +2891,99 @@ def ablate_eigh(libs, in_turns, stream, dev) -> dict:
         rec[f"eigh_small {label}"] = {"sweeps": sweeps, "converged": conv, **ms}
         print(f"  eigh_small {label} (k={k}, {sweeps} sweeps, converged={bool(conv)}): "
               + ", ".join(f"{v} {t:.3f} ms" for v, t in ms.items()), flush=True)
+    return rec
+
+
+def ablate_polar(libs, in_turns, stream, dev, with_parent) -> dict:
+    """:func:`ablate`'s part for K6: ``polar_unitary`` on the overlaps of
+    moves 1, 4 and 31 of the D=7 path, a random well-conditioned one (k =
+    chi and 169) and a graded one near the guard's edge (sigma_max/sigma_min
+    3e9), each first through the whole kernel (its steps), then every copy
+    at that many steps and the whole kernel capped at one step (the set-up,
+    one step and the write-out), beside the eigh-based twin (eager: cuSOLVER's
+    eigh does not capture) and, with the parent, its kernel (first and
+    last); ``polar_vjp`` at k = chi and 169 in f64 and f32 beside its twin
+    (two products) and one ``torch.matmul`` of the shape, and the parent's."""
+    from tpeps_torch.ctm.c4v import move_factored as mf
+    from tpeps_torch.ctm.c4v.env import init_env
+    from tpeps_torch.kernels import polar
+
+    rec = {}
+    a = bench_state(D, dev)
+    env = init_env(a, CHI, "CTMRG")
+    T_int = mf.to_int_layout(env.T, D)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    with torch.inference_mode():
+        cases = {f"O of move {n + 1}": near_unitary_overlap(a, env.C, T_int, n_moves=n)
+                 for n in (0, 3, 30)}
+    cases["random well-conditioned"] = well_conditioned(CHI, gen, torch.float64, dev)
+    cases[f"random well-conditioned k={EIGH_BIG}"] = well_conditioned(EIGH_BIG, gen,
+                                                                      torch.float64, dev)
+    q = lambda: torch.linalg.qr(torch.randn(CHI, CHI, generator=gen, device=dev,
+                                            dtype=torch.float64)).Q
+    s_ = torch.logspace(0, -math.log10(3e9), CHI, dtype=torch.float64, device=dev)
+    cases["graded, sigma_max/sigma_min 3e9"] = ((q() * s_) @ q().mT).contiguous()
+    for label, O in cases.items():
+        k = O.shape[0]
+        W = torch.empty_like(O)
+        info = torch.zeros(5, dtype=torch.int32, device=dev)
+
+        def run(key, steps, O=O, W=W, info=info, k=k):
+            err = libs["polar.cu", key].tpeps_polar_unitary_f64(
+                O.data_ptr(), W.data_ptr(), info.data_ptr(), None, k, steps, stream())
+            if err:
+                fail(f"polar_unitary launch: CUDA error {err}")
+        run(0, polar.MAX_STEPS)
+        steps, conv, kept = info.tolist()[:3]
+        calls = {}
+        if with_parent:
+            scratch = torch.empty(4 * k * k + k, dtype=O.dtype, device=dev)
+            state = torch.zeros(5, dtype=torch.int32, device=dev)
+            fp = libs["polar.cu", "parent"].tpeps_polar_unitary_f64
+            fp.argtypes = (ctypes.c_void_p,) * 4 + (ctypes.c_int, ctypes.c_int, ctypes.c_void_p)
+
+            def parent_call(fp=fp, O=O, W=W, scratch=scratch, state=state, k=k):
+                err = fp(O.data_ptr(), scratch.data_ptr(), W.data_ptr(), state.data_ptr(), k, 20,
+                         stream())
+                if err:
+                    fail(f"parent polar_unitary launch: CUDA error {err}")
+            calls["parent"] = parent_call
+        calls["whole"] = lambda: run(0, polar.MAX_STEPS)
+        calls["one step"] = lambda: run(0, 1)
+        for bits in (8, 9, 10, 13):
+            calls[ABLATIONS["polar.cu"][bits]] = lambda b=bits: run(b, max(steps, 1))
+        calls["whole, 12 k-steps of loads in flight"] = lambda: run("-DTPEPS_POLAR_DEPTH=3",
+                                                                    polar.MAX_STEPS)
+        if with_parent:
+            calls["parent, again"] = calls["parent"]
+        ms = in_turns(calls, 10, 3)
+        ms["twin (eager)"] = cuda_ms(lambda: polar.polar_unitary_twin(O))
+        rec[f"polar_unitary {label}"] = {"k": k, "steps": steps, "converged": conv, "kept": kept,
+                                         **ms}
+        print(f"  polar_unitary {label} (k={k}, {steps} steps, converged {conv}, kept {kept}): "
+              + ", ".join(f"{v} {t * 1000:.1f} us" for v, t in ms.items()), flush=True)
+    for dtype in (torch.float64, torch.float32):
+        sfx = "f64" if dtype == torch.float64 else "f32"
+        for k in (CHI, EIGH_BIG):
+            W = polar.polar_unitary(well_conditioned(k, gen, torch.float64, dev)).to(dtype)
+            Wb = torch.randn(k, k, generator=gen, device=dev, dtype=dtype)
+            Ob = torch.empty_like(W)
+            calls = {}
+            for key in (("parent",) if with_parent else ()) + (0, 16, 32):
+                def call(f=getattr(libs["polar.cu", key], f"tpeps_polar_vjp_{sfx}"), k=k, W=W,
+                         Wb=Wb, Ob=Ob):
+                    err = f(W.data_ptr(), Wb.data_ptr(), Ob.data_ptr(), k, stream())
+                    if err:
+                        fail(f"polar_vjp launch: CUDA error {err}")
+                calls[ABLATIONS["polar.cu"].get(key, key)] = call
+            calls["twin (two products)"] = lambda W=W, Wb=Wb: polar.polar_vjp_twin(W, Wb)
+            calls["torch.matmul (one product)"] = lambda W=W, Wb=Wb: torch.matmul(W.mT, Wb)
+            if with_parent:
+                calls["parent, again"] = calls["parent"]
+            label = f"polar_vjp {sfx} k={k}"
+            rec[label] = ms = in_turns(calls, 20, 5)
+            print(f"  {label}: " + ", ".join(f"{v} {t * 1000:.1f} us" for v, t in ms.items()),
+                  flush=True)
     return rec
 
 
@@ -2918,9 +3139,10 @@ def ablate_fused(libs, in_turns, stream, dev, with_parent) -> dict:
     return rec
 
 
-# one eager D=7 chi=147 f64 move's peak memory and time, and the graphed
-# move's (MoveGraph, 4 moves a replay), after 40 moves from the cold start:
-# run in a checkout's root by move_compare
+# the first 48 eager D=7 chi=147 f64 moves from the cold start (the second of
+# two such runs: the first builds and warms up), then one eager move's peak
+# memory and time, and the graphed move's (MoveGraph, 4 moves a replay): run
+# in a checkout's root by move_compare
 MOVE_CODE = r"""
 import json, time, numpy as np, torch
 from tpeps_torch.ctm.c4v import move_factored as mf
@@ -2932,17 +3154,23 @@ dev, D, chi = torch.device("cuda", 0), 7, 147
 x = np.random.RandomState(0).rand(2, D, D, D, D) - 0.5
 a = symmetrize_c4v(torch.as_tensor(x, dtype=torch.float64), normalize=True).to(dev)
 env = init_env(a, chi, "CTMRG")
-C, T, W = env.C, mf.to_int_layout(env.T, D), None
-P = mf.cold_start_basis(chi * D * D, chi, a.dtype, dev)
-for _ in range(40):
-    C, T, _, P, W = mf.ctm_move_w(a, C, T, P, W)
+ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+for _ in range(2):
+    C, T, W = env.C, mf.to_int_layout(env.T, D), None
+    P = mf.cold_start_basis(chi * D * D, chi, a.dtype, dev)
+    torch.cuda.synchronize()
+    ev[0].record()
+    for _ in range(48):
+        C, T, _, P, W = mf.ctm_move_w(a, C, T, P, W)
+    ev[1].record()
+    ev[1].synchronize()
+cold = ev[0].elapsed_time(ev[1])
 torch.cuda.synchronize()
 base = torch.cuda.memory_allocated()
 torch.cuda.reset_peak_memory_stats()
 mf.ctm_move_w(a, C, T, P, W)
 torch.cuda.synchronize()
 peak = torch.cuda.max_memory_allocated() - base
-ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
 ev[0].record()
 for _ in range(4):
     mf.ctm_move_w(a, C, T, P, W)
@@ -2959,14 +3187,16 @@ for _ in range(5):
 ev[1].record()
 ev[1].synchronize()
 print("MOVE " + json.dumps({"peak_bytes_above_state": peak, "eager_ms_per_move": eager,
+                            "cold_start_48_moves_ms": cold,
                             "graphed_ms_per_move": ev[0].elapsed_time(ev[1]) / 20}))
 """
 
 
 def move_compare(parent) -> dict:
-    """The graphed and the eager factored move and its peak memory, in the
-    parent's checkout and in this one, in turns (parent, change, change,
-    parent), each in a process of its own (:data:`MOVE_CODE`)."""
+    """The first 48 moves from the cold start, the graphed and the eager
+    factored move and its peak memory, in the parent's checkout and in this
+    one, in turns (parent, change, change, parent), each in a process of its
+    own (:data:`MOVE_CODE`)."""
     out = {}
     here = Path(__file__).resolve().parent
     for i, (label, cwd) in enumerate((("parent", Path(parent)), ("change", here),
@@ -2978,7 +3208,8 @@ def move_compare(parent) -> dict:
               f"move in {label}'s checkout: rc {proc.returncode} {proc.stderr[-2000:]}")
         r = json.loads(line[-1][5:])
         out[f"{label} {i}"] = r
-        print(f"  move ({label}): graphed {r['graphed_ms_per_move']:.3f} ms/move, eager "
+        print(f"  move ({label}): first 48 moves from the cold start "
+              f"{r['cold_start_48_moves_ms']:.2f} ms, graphed {r['graphed_ms_per_move']:.3f} ms/move, eager "
               f"{r['eager_ms_per_move']:.3f} ms/move, peak {r['peak_bytes_above_state'] / 2**20:.1f}"
               " MiB above the state", flush=True)
     return out
@@ -3018,6 +3249,7 @@ def main() -> None:
     rec_gen, cg_entry, cg_frozen, cg_train = phase10(dev)
     rec.update(rec_gen)
     lap(10)
+    rec["polar_unitary"]["steps_by_run"] = K6_STEPS
     # launches: on the training path for its kernels, on the large-D slice
     # for K5/K7, on the abelian entry point for K8 and converge_frozen for
     # K9, on the abelian training entry point for K8's and K9's backward,

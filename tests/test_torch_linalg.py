@@ -11,6 +11,7 @@ import pytest
 import torch
 
 import tpeps  # noqa: F401  (enables x64)
+import jax
 import jax.numpy as jnp
 
 from tpeps.linalg import eigh as j_eigh
@@ -20,6 +21,7 @@ from tpeps_torch.linalg import power as t_power
 from test_torch_package import one_torch_thread  # noqa: F401  (autouse)
 
 TOL = 1e-12
+_J_POLAR = jax.jit(j_power.polar_unitary)
 
 
 def _tall(n, k, seed):
@@ -184,3 +186,131 @@ def test_polar_unitary_guard_on_singular_overlap():
     Wt = t_power.polar_unitary(torch.from_numpy(O)).numpy()
     np.testing.assert_array_equal(Wt, np.eye(6))
     np.testing.assert_array_equal(Wt, Wj)
+
+
+# --- K6: the kernel's guarded Newton-Schulz iteration, modelled in plain torch
+
+
+def _ns_polar_model(O, max_steps=None, stop=1e-8):
+    """A plain-torch model of the card's ``polar_unitary`` (csrc/polar.cu):
+    Newton-Schulz ``Y <- Y (3 I - Y^T Y) / 2`` from ``Y = O / sqrt(lam)``,
+    ``lam = min(||H||_1, ||H||_F, 1 + ||H - I||_F) >= ||H||_2``, stopping
+    after the step whose ``||Y^T Y - I||_F <= stop``; ``I`` when it did not
+    converge within ``max_steps`` (the kernel's cap), met a non-finite
+    value, or gave a non-finite ``W``.  Returns ``(W, steps)``."""
+    from tpeps_torch.kernels.polar import MAX_STEPS
+
+    max_steps = MAX_STEPS if max_steps is None else max_steps
+    eye = torch.eye(O.shape[0], dtype=O.dtype)
+    H = O.T @ O
+    lam = min(float(H.abs().sum(0).max()), float(torch.linalg.norm(H)),
+              1.0 + float(torch.linalg.norm(H - eye)))
+    alpha = lam ** -0.5
+    Y, G, beta = O, H, alpha * alpha
+    for step in range(1, max_steps + 1):
+        d2 = float(((beta * G - eye) ** 2).sum())
+        if not np.isfinite(d2):
+            break
+        Y = Y @ (alpha * (1.5 * eye - 0.5 * beta * G))
+        if d2 <= stop ** 2:
+            return (Y if bool(torch.isfinite(Y).all()) else eye), step
+        G, alpha, beta = Y.T @ Y, 1.0, 1.0
+    return eye, step
+
+
+_K6 = 16  # one shape: JAX's polar_unitary compiles once
+
+
+def _j_polar(O):
+    return np.asarray(_J_POLAR(jnp.asarray(O)))
+
+
+def _svd_overlap(s, seed):
+    """``U diag(s) V^T`` with U, V from a QR of seeded matrices, and ``U V^T``,
+    its exact polar factor."""
+    rs = np.random.RandomState(seed)
+    U = np.linalg.qr(rs.rand(len(s), len(s)) - 0.5)[0]
+    V = np.linalg.qr(rs.rand(len(s), len(s)) - 0.5)[0]
+    return (U * s) @ V.T, U @ V.T
+
+
+def _overlap(kind):
+    rs = np.random.RandomState(11)
+    if kind == "near_orthogonal":  # consecutive projectors late in a run
+        return _svd_overlap(1.0 + 1e-6 * (rs.rand(_K6) - 0.5), seed=12)[0]
+    if kind in ("dev_below_0.9", "dev_above_0.9"):  # ||O^T O - I||_F = 0.89 or 0.91
+        dev = 0.89 if kind == "dev_below_0.9" else 0.91
+        v = rs.rand(_K6) - 0.5
+        return _svd_overlap(np.sqrt(1.0 + dev * v / np.linalg.norm(v)), seed=13)[0]
+    # procrustes_align's masked overlap: identity rows for the masked columns
+    P, P_ref = _orthonormal(60, _K6, seed=14), _orthonormal(60, _K6, seed=15)
+    m = np.ones(_K6)
+    m[-3:] = 0.0
+    O = (P * m).T @ P_ref
+    O = O * (m[:, None] * m[None, :]) + (1.0 - m)[:, None] * np.eye(_K6)
+    return O + 1e-12 * np.eye(_K6)
+
+
+@pytest.mark.parametrize("kind", ["near_orthogonal", "dev_below_0.9", "dev_above_0.9", "masked"])
+def test_polar_model_and_twin_match_jax(kind):
+    """The kernel's iteration (its model here) and the eigh-based twin give
+    JAX's polar_unitary on the overlaps the path sees: near-orthogonal, with
+    ||O^T O - I||_F on either side of the parent kernel's 0.9 branch point,
+    and masked as procrustes_align builds it (1e-12: all are
+    well-conditioned, so both methods reach the polar factor to rounding)."""
+    from tpeps_torch.kernels.polar import polar_unitary_twin
+
+    O = _overlap(kind)
+    Wj = _j_polar(O)
+    Wm, steps = _ns_polar_model(torch.from_numpy(O))
+    assert not np.array_equal(Wj, np.eye(_K6))
+    np.testing.assert_allclose(Wm.numpy(), Wj, rtol=0, atol=TOL)
+    np.testing.assert_allclose(polar_unitary_twin(torch.from_numpy(O)).numpy(), Wj, rtol=0,
+                               atol=TOL)
+    assert steps <= (4 if kind == "near_orthogonal" else 12)
+
+
+@pytest.mark.parametrize("cond", [1e2, 1e4, 1e6, 1e8])
+def test_polar_on_graded_overlaps(cond):
+    """On ``O = U diag(s) V^T`` with sigma_max/sigma_min = cond the exact
+    factor is ``U V^T``: the iteration works on O itself and reaches it
+    within 1e-13 cond; the twin and JAX take an eigh of O^T O, which squares
+    the condition, and reach it within 1e-15 cond^2."""
+    from tpeps_torch.kernels.polar import polar_unitary_twin
+
+    O, X = _svd_overlap(np.logspace(0, -np.log10(cond), _K6), seed=16)
+    Wm, _ = _ns_polar_model(torch.from_numpy(O))
+    assert np.abs(Wm.numpy() - X).max() <= 1e-13 * cond
+    for W in (_j_polar(O), polar_unitary_twin(torch.from_numpy(O)).numpy()):
+        assert np.abs(W - X).max() <= 1e-15 * cond ** 2
+
+
+@pytest.mark.parametrize("kind", ["exactly_singular", "ridged_singular"])
+def test_polar_gives_identity_on_singular_overlaps(kind):
+    """Null directions never grow under the iteration, and ridged ones (1e-12,
+    procrustes_align's ridge) do not converge within the cap: the model
+    gives I, as the eigh-based guard of the twin and of JAX does (the null
+    block is exact in O^T O, so the eigh sees w_min <= 1e-24 w_max)."""
+    from tpeps_torch.kernels.polar import polar_unitary_twin
+
+    O = np.zeros((_K6, _K6))  # an orthogonal block beside three null directions
+    O[:-3, :-3] = _orthonormal(_K6 - 3, _K6 - 3, seed=17)
+    if kind == "ridged_singular":
+        O = O + 1e-12 * np.eye(_K6)
+    Wm, steps = _ns_polar_model(torch.from_numpy(O))
+    for W in (Wm.numpy(), polar_unitary_twin(torch.from_numpy(O)).numpy(), _j_polar(O)):
+        np.testing.assert_array_equal(W, np.eye(_K6))
+
+
+def test_polar_step_cap_sits_between_the_guard_edge_and_the_ridge():
+    """The cap is the condition guard: sigma_min/sigma_max = 1e-10 (JAX's
+    w_min = 1e-20 w_max) converges within it, 1e-12 does not."""
+    from tpeps_torch.kernels.polar import MAX_STEPS
+
+    O, X = _svd_overlap(np.logspace(0, -10, _K6), seed=18)
+    Wm, steps = _ns_polar_model(torch.from_numpy(O))
+    assert steps < MAX_STEPS and np.abs(Wm.numpy() - X).max() <= 1e-13 * 1e10
+    O, _ = _svd_overlap(np.logspace(0, -12, _K6), seed=18)
+    Wm, steps = _ns_polar_model(torch.from_numpy(O))
+    assert steps == MAX_STEPS
+    np.testing.assert_array_equal(Wm.numpy(), np.eye(_K6))

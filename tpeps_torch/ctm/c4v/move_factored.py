@@ -19,7 +19,7 @@ warm-started subspace iteration.  The kernels:
 The chi-contractions around the layers (C.T_top, T_left.ct, T.P and the
 closing conj(P)) are plain large matrix products and stay ``torch.matmul``.
 The Rayleigh-Ritz eigh of a real move is the on-card Jacobi kernel
-``eigh_small`` (chi <= 169, as for K6), so the move reads nothing to the
+``eigh_small`` (chi <= 169; K6 takes chi <= 192), so the move reads nothing to the
 host and captures into a CUDA graph (K5, :mod:`tpeps_torch.ctm.c4v.move_graph`).
 
 ``dot_impl="ozaki[:s]"`` (move_tpu.py:36-72) runs a real float64 move as the

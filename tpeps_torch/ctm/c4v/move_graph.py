@@ -63,7 +63,7 @@ class MoveGraph:
     :data:`tpeps_torch.kernels.LAUNCHES`; the capture itself counts nothing.
 
     :raises ValueError: on the card for chi > ``EIGH_SMALL_MAX`` (169), past
-        the kernels of the move's Rayleigh-Ritz eigh and of K6
+        the kernel of the move's Rayleigh-Ritz eigh
     """
 
     @torch.inference_mode()
@@ -72,7 +72,7 @@ class MoveGraph:
             raise ValueError(f"n_moves={n_moves} must be >= 1")
         if a.device.type == "cuda" and chi > EIGH_SMALL_MAX:
             raise ValueError(f"MoveGraph: chi={chi} > {EIGH_SMALL_MAX}: the factored move's "
-                             "eigh_small and polar_unitary kernels take no larger chi")
+                             "eigh_small kernel takes no larger chi")
         D = a.shape[1]
         self.n_moves, self.conv_on = n_moves, conv_on
         self.move_kwargs = move_kwargs

@@ -44,6 +44,9 @@ _SIGNATURES = {
     "tpeps_polar_unitary_f64": (_vp, _vp, _vp, _vp, _i, _i, _vp),
     "tpeps_polar_vjp_f64": (_vp, _vp, _vp, _i, _vp),
     "tpeps_polar_vjp_f32": (_vp, _vp, _vp, _i, _vp),
+    "tpeps_polar_max_k": (),
+    "tpeps_polar_max_steps": (),
+    "tpeps_polar_stats_len": (),
     "tpeps_eigh_small_f64": (_vp, _vp, _vp, _vp, _i, _i, _vp),
     "tpeps_ozaki_max_slices": (),
     "tpeps_ozaki_split": (_vp, _vp, _vp, _i64, _i, _i, _i, _i, _i, _vp),
@@ -80,7 +83,6 @@ _SIGNATURES = {
 
 # name -> argtypes of the size queries, which return int64
 _SIZE_QUERIES = {
-    "tpeps_polar_smem": (_i, _i),
     "tpeps_corner_apply_scratch_f64": (_i, _i),
     "tpeps_gram_scratch_f64": (_i, _i, _i, _i),
     "tpeps_gram_scratch_f32": (_i, _i, _i, _i),

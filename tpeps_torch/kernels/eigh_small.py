@@ -11,8 +11,8 @@ from .build import library
 
 MAX_SWEEPS = 30  # block Jacobi sweep cap; an unconverged decomposition gives NaN
 # the largest k routed here (the kernel keeps V^T in one block's shared
-# memory, k <= 170): the factored move's largest chi on the card, where its
-# polar kernel (K6) stops too
+# memory, k <= 170): the factored move's largest chi on the card (its polar
+# kernel, K6, takes k <= 192)
 EIGH_SMALL_MAX = 169
 
 
