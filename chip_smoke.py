@@ -53,11 +53,14 @@ Phases (any failed check exits non-zero; there is no CPU fallback):
    agree to 1e-10.
 5. the training slice at full width: 2 L-BFGS epochs of the port's entry
    point (``optimize_c4v``) on the D=7, chi=147 float64 state, POWER
-   projector, implicit gradient (48 forward moves, 24 adjoint iterations),
+   projector, implicit gradient (24 forward moves, 24 adjoint iterations),
    backtracking line search with POWER, observables and final energy with
    SYMEIG (reference-layout fixed points throughout, as the JAX script).
    Loss and gradient finite, the loss not rising, every K3 and K6 kernel
    launched, forward and backward; seconds per part, peak memory, launches.
+   The overlaps of K6's calls that dropped W (gave I) are kept on the card
+   and read once at the end: sigma_min/sigma_max, the twin's result; the
+   kernel must keep W wherever the twin does at a ratio of 1e-10 or more.
 6. D=2, chi=16 card vs CPU from one initial environment: the implicit
    gradient (POWER and SYMEIG) of RandomState(1), a state whose gradient
    the inputs fix to ~1e-10, to 1e-8 relative, and of RandomState(0),
@@ -83,12 +86,15 @@ Phases (any failed check exits non-zero; there is no CPU fallback):
 8. the abelian slice, U(1) C4v J1-J2 (j2=0.3) at D=8 (aux sectors
    {-2:1,-1:2,0:2,1:2,2:1}), chi=160, float64, a random state from a seeded
    generator (C4v-projected, normalized) written to JSON: (a) K8
-   ``block_permute`` (bit-exact) and ``block_gemm`` on each of a dynamic
-   move's ten tensordots (<= 1e-12 relative) and K9 ``frozen_commit`` (C, T
-   bit-exact, dist2 <= 1e-12 relative) against their twins at the move's
-   shapes, with kernel, twin and bound times (``block_gemm``'s twin is the
-   JAX package's design: one ``torch.bmm`` per shape group and
-   ``index_add_``); the sector SVD drivers timed on the largest +-q sector;
+   ``block_gemm`` on each of a dynamic move's ten tensordots (<= 1e-12
+   relative, two calls bit-identical; each class of its schedule timed alone
+   beside its bound), ``block_permute`` on every permute table of the move,
+   the largest operand's, the corner's sector gather and its inverse
+   (bit-exact), and K9 ``frozen_commit`` (C, T bit-exact, dist2 <= 1e-12
+   relative) against their twins at the move's shapes, with kernel, twin and
+   bound times (``block_gemm``'s twin is the JAX package's design: one
+   ``torch.bmm`` per shape group and ``index_add_``); the sector SVD drivers
+   timed on the largest +-q sector;
    (b) the entry point ``tpeps_torch.examples.j1j2.abelian.ctmrg_j1j2_c4v_u1``
    on that file (8 dynamic moves): ms/move, host planning, the device busy
    share over two more moves, energy, observables, peak memory, the chi
@@ -103,7 +109,8 @@ Phases (any failed check exits non-zero; there is no CPU fallback):
    elementwise, 1e-10).
 9. the abelian training slice on phase 8's D=8 chi=160 state: (a) at a
    frozen move's shapes, the backward tables of its ten tensordots
-   (``block_gemm`` on the dA and dB tables, <= 1e-12 relative;
+   (``block_gemm`` on the dA and dB tables, <= 1e-12 relative, two calls
+   bit-identical;
    ``block_permute`` on the largest operand's inverse table, bit-exact),
    ``frozen_epilogue_vjp`` (<= 1e-12 relative) and ``adjoint_commit`` (one
    step <= 1e-12 relative; the loop on crafted |u|^2 sequences, counters
@@ -128,7 +135,9 @@ Phases (any failed check exits non-zero; there is no CPU fallback):
    signature, written to JSON.  (b) the entry point
    ``tpeps_torch.examples.j1j2.abelian.ctmrg_j1j2_u1 --tiling BIPARTITE`` for
    GEN_ENTRY_SWEEPS sweeps (ms per sweep, host planning, energy, observables,
-   chi profiles, peak memory) and one more directional move's busy share;
+   chi profiles, peak memory), K8 ``block_gemm`` on one more directional
+   move's tensordots against its twin (<= 1e-12 relative, two calls
+   bit-identical) and that move's busy share;
    (e) GEN_TRAIN_EPOCHS L-BFGS epoch(s) of
    ``tpeps_torch.examples.j1j2.abelian.optim_j1j2_u1`` on the same file
    (GEN_TRAIN_SWEEPS sweeps per context and frozen fixed point, the adjoint
@@ -145,7 +154,8 @@ Phases (any failed check exits non-zero; there is no CPU fallback):
    spectra and energy (GEN_SMALL_DYN sweeps) and 3 frozen sweeps (C, |T|)
    card vs CPU (1e-10), the chi=9 gradient from a converged context card vs
    CPU (1e-8 relative) and, on the card, the central difference along g/|g|
-   (> 0) next to |g|.
+   (> 0) next to |g|; the CPU side of (f) runs in a worker process
+   (:func:`gen_small_cpu`) started at the top of the phase, beside (b)-(c).
 
 Phase 2 also holds the kernels of the large-D slice against their twins at
 its shapes: ``eigh_small`` on the Rayleigh-Ritz H of moves 4 and 31 of the
@@ -170,11 +180,13 @@ The last two lines of stdout are the per-kernel JSON record and
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import ctypes
 import itertools
 import json
 import math
+import multiprocessing
 import re
 import subprocess
 import sys
@@ -195,7 +207,10 @@ TOL = {torch.float64: 1e-12, torch.float32: 1e-5}
 BWD_TOL = {torch.float64: 1e-14, torch.float32: 1e-6}
 TWIN_MOVES, TWIN_SPEC_TOL = 4, 1e-8
 E_SMALL_TOL = 1e-10
-TRAIN_EPOCHS, TRAIN_MAX_ITER, TRAIN_ADJ_ITER = 2, 48, 24
+# the training slice's forward moves per fixed point (the gradient's, the
+# line search's and the SYMEIG observables': the observables' dense 7203^2
+# eigh, ~0.5 s a move, is most of the phase) and adjoint iterations
+TRAIN_EPOCHS, TRAIN_MAX_ITER, TRAIN_ADJ_ITER = 2, 24, 24
 LOSS_SMALL_TOL, SMALL_EPOCHS = 1e-8, 3
 # phase 6's states and their gradient tolerances: an exact alternative
 # eigensolver moves RandomState(1)'s implicit gradient by 1.2e-10 (POWER),
@@ -265,7 +280,8 @@ ABELIAN = ("block_permute", "block_gemm", "frozen_commit")
 # the abelian training path (phase 9): ctm_max_iter of its contexts and
 # frozen fixed points (the dynamic moves per context and the frozen moves per
 # loss) in the two epochs and in the one closure, the D=3 card-vs-CPU
-# gradient's chi, frozen moves and tolerance
+# gradient's chi, frozen moves and tolerance (at 8 moves the epochs' contexts
+# are far from converged and the second epoch's loss rose above the first)
 AB_GRAD_MOVES, AB_CLOSURE_MOVES = 24, 12
 AB_TRAIN = ("block_permute", "block_gemm", "block_permute_grad", "block_gemm_grad",
             "frozen_commit", "frozen_epilogue_vjp", "adjoint_commit")
@@ -295,13 +311,17 @@ GEN_K10 = ("generic_epilogue", "sweep_commit", "generic_epilogue_vjp")
 HBM_BPS, FP64_TC, FP64_CC, INT8_TC = 3.35e12, 67e12, 34e12, 1979e12
 
 
+T_START = time.perf_counter()  # the script's start, for the checks' time stamps
+
+
 def fail(msg: str) -> None:
     print(f"FAIL: {msg}", flush=True)
     sys.exit(1)
 
 
 def check(ok: bool, msg: str) -> None:
-    print(f"  [{'ok' if ok else 'FAIL'}] {msg}", flush=True)
+    print(f"  [{'ok' if ok else 'FAIL'}] {msg} (at {time.perf_counter() - T_START:.1f} s)",
+          flush=True)
     if not ok:
         fail(msg)
 
@@ -417,6 +437,78 @@ def k6_steps_read(dev, run: str) -> dict:
     return out
 
 
+K6_CAPPED = 16  # overlaps of K6's calls that gave I, kept on the card in a run
+
+
+class K6Capture:
+    """Wraps the path's K6 ``polar_unitary`` (``polar_unitary_kernel`` in
+    ``tpeps_torch.linalg.power``): each call passes an ``info`` tensor, and where the kernel did not keep W its
+    overlap is copied into a buffer on the card (the first
+    :data:`K6_CAPPED`), with no read to the host; :meth:`report` reads the
+    buffer once, after the run."""
+
+    def __init__(self, dev):
+        from tpeps_torch.kernels import polar
+
+        self.orig, self.dev = polar.polar_unitary, dev
+        self.info = torch.zeros(5, dtype=torch.int32, device=dev)
+        self.count = torch.zeros(1, dtype=torch.int64, device=dev)
+        self.buf = {}
+
+    def __call__(self, O, info=None, max_steps=None):
+        from tpeps_torch.kernels.polar import MAX_STEPS
+
+        W = self.orig(O, self.info, MAX_STEPS if max_steps is None else max_steps)
+        if O.device.type == "cuda" and O.dtype == torch.float64:
+            k = O.shape[0]
+            buf = self.buf.setdefault(k, torch.zeros(K6_CAPPED, k, k, dtype=O.dtype,
+                                                     device=O.device))
+            dropped = (self.info[2] == 0).to(torch.int64)
+            slot = self.count.clamp(max=K6_CAPPED - 1)
+            keep = buf.index_select(0, slot)
+            buf.index_copy_(0, slot, torch.where(dropped.bool(), O[None], keep))
+            self.count += dropped
+        if info is not None:
+            info.copy_(self.info)
+        return W
+
+    def report(self, label: str) -> list:
+        """Each captured overlap: sigma_min/sigma_max (FP64 SVD), whether
+        the twin keeps W, the kernel's steps; checks that the kernel keeps W
+        wherever the twin does at sigma_min/sigma_max >= 1e-10 (the JAX
+        guard's edge)."""
+        from tpeps_torch.kernels.polar import MAX_STEPS, polar_unitary_twin
+
+        n = int(self.count)
+        rows = []
+        for k, buf in self.buf.items():
+            for O in buf[:min(n, K6_CAPPED)]:
+                if not bool(O.abs().sum() > 0):
+                    continue
+                s = torch.linalg.svdvals(O)
+                ratio = float(s[-1] / s[0])
+                eye = torch.eye(k, dtype=O.dtype, device=O.device)
+                twin_keeps = not torch.equal(polar_unitary_twin(O), eye)
+                info = torch.zeros(5, dtype=torch.int32, device=O.device)
+                self.orig(O, info, MAX_STEPS)
+                steps, kept = int(info[0]), bool(info[2])
+                rows.append(dict(k=k, ratio=ratio, twin_keeps_w=twin_keeps, steps=steps,
+                                 kernel_keeps_w=kept))
+                print(f"  K6 {label}: an overlap (k={k}) whose W the kernel dropped: "
+                      f"sigma_min/sigma_max {ratio:.3e}, the twin "
+                      f"{'keeps W' if twin_keeps else 'gives I'}; again on the card: {steps} "
+                      f"steps, W {'kept' if kept else 'dropped'}")
+        print(f"  K6 {label}: {n} calls dropped W ({len(rows)} overlaps kept for the check)")
+        bad = [r for r in rows if r["ratio"] >= 1e-10 and r["twin_keeps_w"] and
+               not r["kernel_keeps_w"]]
+        check(not bad, f"K6 {label}: the kernel keeps W wherever the twin does at "
+                       f"sigma_min/sigma_max >= 1e-10 ({len(bad)} overlaps where it does not)")
+        return rows
+
+
+K6_DROPPED: dict = {}  # K6Capture.report per run, for the JSON record
+
+
 def bench_state(D_, device, dtype=torch.float64, seed=0):
     from tpeps_torch.ipeps.ipeps_c4v import symmetrize_c4v
 
@@ -433,7 +525,7 @@ def phase0() -> str:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
-    print(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, "
+    print(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, numpy {np.__version__}, "
           f"{torch.cuda.device_count()} device(s), using {torch.cuda.get_device_name(0)}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1018,6 +1110,7 @@ def phase5(dev) -> dict:
           "float64", flush=True)
     from tpeps_torch.examples.optim_common_c4v import optimize_c4v
     from tpeps_torch.kernels import launch_counts, reset_launch_counts
+    from tpeps_torch.linalg import power as t_power
     from tpeps_torch.models.j1j2 import J1J2_C4V_BIPARTITE
 
     model = J1J2_C4V_BIPARTITE(j1=J1, j2=J2, device=dev)
@@ -1040,12 +1133,16 @@ def phase5(dev) -> dict:
         torch.cuda.reset_peak_memory_stats()
         reset_launch_counts()
         k6_steps_reset(dev)
+        capture = K6Capture(dev)
         t0 = time.perf_counter()
-        e_fin, _, _, hist = optimize_c4v(cfg, model, energy, A0, grad_stats=stats)
+        with mock.patch.object(t_power, "polar_unitary_kernel", capture):
+            e_fin, _, _, hist = optimize_c4v(cfg, model, energy, A0, grad_stats=stats)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = launch_counts()
         k6_steps_read(dev, "training slice")
+        if dev.type == "cuda":
+            K6_DROPPED["training slice"] = capture.report("training slice")
     peak = torch.cuda.max_memory_allocated()
     for i, (st, loss) in enumerate(zip(stats, closure_losses)):
         print(f"  gradient {i}: loss {loss:.12f}, forward {st['fwd_moves']} moves "
@@ -1515,6 +1612,143 @@ def record_dots(fn):
     return out, calls
 
 
+def record_permutes(fn):
+    """Run ``fn()`` and return its result with the (src, table, numel,
+    zero_fill) of every ``block_permute`` copy it made through
+    ``permute_flat`` (operand layouts, transposes, sector gathers, isometry
+    scatters)."""
+    from tpeps_torch.sym import frozen as sym_frozen
+    from tpeps_torch.sym import tensor as ab_tensor
+
+    calls, orig = [], ab_tensor.permute_flat
+
+    def rec(src, table, numel, zero_fill=False):
+        calls.append((src.detach(), table, numel, zero_fill))
+        return orig(src, table, numel, zero_fill)
+
+    with mock.patch.object(ab_tensor, "permute_flat", rec), \
+            mock.patch.object(sym_frozen, "permute_flat", rec):
+        out = fn()
+    return out, calls
+
+
+def _ranges(starts, lens, dev):
+    """``concat(arange(s, s + n) for s, n in zip(starts, lens))`` on ``dev``."""
+    starts = torch.as_tensor(np.asarray(starts, np.int64), device=dev)
+    lens = torch.as_tensor(np.asarray(lens, np.int64), device=dev)
+    total = int(lens.sum()) if len(lens) else 0
+    first = torch.repeat_interleave(torch.cumsum(lens, 0) - lens, lens, output_size=total)
+    return (torch.repeat_interleave(starts, lens, output_size=total)
+            + torch.arange(total, device=dev) - first)
+
+
+def twin_plan(table, dev):
+    """The twin's cached index plan of ``table`` on ``dev`` (``PermuteTable
+    .element_index``, ``GemmTable.groups``: the same arrays in the same
+    order), built with torch on ``dev`` rather than with numpy on the host,
+    where a D=8 table's hundred million indices take seconds; returns
+    ``table``.  Phase 8(a) holds it against the host's build."""
+    from tpeps_torch.kernels import blocksparse
+
+    key = str(dev)
+    if isinstance(table, blocksparse.PermuteTable):
+        cache = table.__dict__.setdefault("_elem", {})
+        if key in cache:
+            return table
+        shape = table.shape.astype(np.int64)
+        sizes = shape.prod(axis=1)
+        blk = torch.repeat_interleave(torch.arange(table.nblk, device=dev),
+                                      torch.as_tensor(sizes, device=dev),
+                                      output_size=int(sizes.sum()))
+        loc = _ranges(np.zeros_like(sizes), sizes, dev)
+        col = lambda x, l: torch.as_tensor(np.ascontiguousarray(x[:, l]), device=dev)[blk]  # noqa
+        sidx = torch.as_tensor(table.soff, device=dev)[blk]
+        didx = torch.as_tensor(table.doff, device=dev)[blk]
+        for l in range(table.rank - 1, -1, -1):
+            n = col(shape, l)
+            i = loc % n
+            loc = loc // n
+            sidx = sidx + i * col(table.sstr, l)
+            didx = didx + i * col(table.dstr, l)
+        sc = None if table.scale is None else torch.as_tensor(table.scale, device=dev)[blk]
+        cache[key] = (sidx, didx, sc)
+        return table
+    cache = table.__dict__.setdefault("_groups", {})
+    if key in cache:
+        return table
+    o_of_p = np.repeat(np.arange(table.nout), np.diff(table.ob_ptr))
+    m = table.ob_m.astype(np.int64)[o_of_p]
+    n = table.ob_n.astype(np.int64)[o_of_p]
+    k = table.pr_k.astype(np.int64)
+    shapes = np.stack([m, k, n], axis=1) if len(k) else np.zeros((0, 3), np.int64)
+    uniq, inv = (np.unique(shapes, axis=0, return_inverse=True) if len(k)
+                 else (shapes, np.zeros(0, np.int64)))
+    inv = inv.reshape(-1)
+    order = np.argsort(inv, kind="stable")  # the pairs group after group, each in order
+    cnt = np.bincount(inv, minlength=len(uniq))
+    groups, a0, b0, p0 = [], 0, 0, 0
+    for (mm, kk, nn), c in zip(uniq.tolist(), cnt.tolist()):
+        sg = table.pr_s[order[p0:p0 + c]]
+        groups.append((a0, c * mm * kk, b0, c * kk * nn, None if (sg > 0).all() else
+                       torch.as_tensor(sg.astype(np.float64), device=dev), mm, kk, nn))
+        a0, b0, p0 = a0 + c * mm * kk, b0 + c * kk * nn, p0 + c
+    mn = table.ob_m.astype(np.int64) * table.ob_n
+    cache[key] = (_ranges(table.pr_a[order], (m * k)[order], dev),
+                  _ranges(table.pr_b[order], (k * n)[order], dev),
+                  _ranges(table.ob_off[o_of_p][order], (m * n)[order], dev), groups,
+                  _ranges(table.ob_off, mn, dev))
+    return table
+
+
+def twin_plan_agrees(table, dev) -> bool:
+    """:func:`twin_plan`'s arrays against the host's build of the same
+    plan, element for element."""
+    from tpeps_torch.kernels import blocksparse
+
+    perm = isinstance(table, blocksparse.PermuteTable)
+    name = "_elem" if perm else "_groups"
+    table.__dict__.pop(name, None)
+    host = table.element_index(dev) if perm else table.groups(dev)
+    table.__dict__.pop(name, None)
+    card = twin_plan(table, dev).element_index(dev) if perm else table.groups(dev)
+    same = lambda x, y: (x is None and y is None) or (  # noqa: E731
+        x is not None and y is not None and torch.equal(x, y))
+    if perm:
+        return all(same(x, y) for x, y in zip(host, card))
+    return (all(same(x, y) for x, y in zip(host[:3] + host[4:], card[:3] + card[4:]))
+            and len(host[3]) == len(card[3])
+            and all(x[:4] == y[:4] and x[5:] == y[5:] and same(x[4], y[4])
+                    for x, y in zip(host[3], card[3])))
+
+
+def permute_against_twin(src, table, numel, dev) -> bool:
+    """``block_permute`` against its twin on ``table``, from the same zero
+    destination: bit for bit."""
+    from tpeps_torch.kernels import blocksparse
+
+    twin_plan(table, dev)
+    dk = torch.zeros(numel, dtype=src.dtype, device=dev)
+    dt = torch.zeros_like(dk)
+    blocksparse.block_permute(src, dk, table)
+    blocksparse.block_permute_twin(src, dt, table)
+    table.__dict__.pop("_elem", None)  # the twin's index arrays: GBs at D=8
+    return torch.equal(dk, dt)
+
+
+def gemm_against_twin(table, lhs, rhs, n_out, dev) -> tuple:
+    """``(relative error to the twin, two calls bit-identical)`` of
+    ``block_gemm`` on ``table``."""
+    from tpeps_torch.kernels import blocksparse
+
+    mk = lambda: torch.full((n_out,), 7.0, dtype=lhs.dtype, device=dev)  # noqa: E731
+    twin_plan(table, dev)
+    out_k = blocksparse.block_gemm(lhs, rhs, mk(), table)
+    out_k2 = blocksparse.block_gemm(lhs, rhs, mk(), table)
+    out_t = blocksparse.block_gemm_twin(lhs, rhs, mk(), table)
+    table.__dict__.pop("_groups", None)  # the twin's index arrays: GBs at D=8
+    return rel_err(out_k, out_t), torch.equal(out_k, out_k2)
+
+
 def busy_share(fn, key_averages=False):
     """``(wall s, busy s)`` of ``fn()`` under torch.profiler: the union of the
     [start, end) intervals of the CUDA-device activities (kernels, copies,
@@ -1634,19 +1868,23 @@ def phase8(dev) -> tuple:
           f"closed: C {'unchanged' if C.struct is env.C.struct else 'grown'}, "
           f"T {'unchanged' if T.struct is env.T.struct else 'grown'}")
     # (a) the move's kernels against their twins, at one dynamic move's shapes
-    _, calls = record_dots(lambda: ab_ctmrg.ctm_move_sl(a, env, AB_PK))
+    (_, perms), calls = record_dots(
+        lambda: record_permutes(lambda: ab_ctmrg.ctm_move_sl(a, env, AB_PK)))
     check(len(calls) == 10, f"one dynamic move made {len(calls)} tensordots (10)")
     totals = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, flops=0, bytes=0, pairs=0, groups=0)
+    by_class = {}
     err_max = 0.0
-    big_perm = None
+    big_perm, calls_tables = None, []
     for i, (x, y, axes, out_like) in enumerate(calls):
         plan, abuf, bbuf = x.dot_operands(y, axes, out_like)
-        g = plan.gemm
+        g = twin_plan(plan.gemm, dev)
+        calls_tables.append(g)
         kern = lambda: blocksparse.block_gemm(abuf, bbuf, torch.empty(plan.out.numel,
                                               dtype=abuf.dtype, device=dev), g)
         twin = lambda: blocksparse.block_gemm_twin(abuf, bbuf, torch.empty(
             plan.out.numel, dtype=abuf.dtype, device=dev), g)
         out_k, out_t = kern().clone(), twin()
+        same = torch.equal(out_k, kern())
         err = rel_err(out_k, out_t)
         err_max = max(err_max, float((out_k - out_t).abs().max()))
         ms_k, ms_t = min(cuda_ms(kern), cuda_ms(kern)), cuda_ms(twin, reps=2)
@@ -1656,11 +1894,26 @@ def phase8(dev) -> tuple:
         for key, v in (("ms", ms_k), ("plain_ms", ms_t), ("bound_ms", b_ms), ("flops", flops),
                        ("bytes", 8 * elems), ("pairs", g.npairs), ("groups", ngroups)):
             totals[key] += v
-        check(err <= TOL[torch.float64],
+        parts = []
+        for cls in np.unique(g.ob_kind):  # each class alone: its tiles in one launch
+            sub = g.restricted([cls])
+            ms_c = cuda_ms(lambda: blocksparse.block_gemm(
+                abuf, bbuf, torch.empty(plan.out.numel, dtype=abuf.dtype, device=dev), sub), reps=3)
+            fc, ec = g.work([cls])
+            bc = bound(8 * ec, fc, FP64_TC)[0]
+            name = blocksparse.CLASS_NAMES[cls]
+            acc = by_class.setdefault(name, dict(ms=0.0, bound_ms=0.0, blocks=0, tiles=0, dots=0))
+            for key, v in (("ms", ms_c), ("bound_ms", bc), ("blocks", int((g.ob_kind == cls).sum())),
+                           ("tiles", sub.ntiles), ("dots", 1)):
+                acc[key] += v
+            parts.append(f"{name} {int((g.ob_kind == cls).sum())} blocks {ms_c:.3f} ms "
+                         f"(bound {bc:.4f})")
+        check(err <= TOL[torch.float64] and same,
               f"block_gemm tensordot {i + 1}: {g.npairs} pairs in {ngroups} shape groups, "
               f"{g.nout} output blocks, {g.ntiles} tiles, {flops / 1e9:.3f} GFLOP, "
               f"{8 * elems / 1e6:.1f} MB; kernel {ms_k:.3f} ms, twin {ms_t:.3f} ms, bound "
-              f"{b_ms:.4f} ms ({b_by}); rel err {err:.1e} <= 1e-12")
+              f"{b_ms:.4f} ms ({b_by}); by class: {'; '.join(parts)}; rel err {err:.1e} <= "
+              f"1e-12, two calls bit-identical: {same}")
         for src, perm in ((x, plan.perm_a), (y, plan.perm_b)):
             if perm is not None and (big_perm is None or perm.total > big_perm[1].total):
                 big_perm = (src, perm)
@@ -1671,35 +1924,63 @@ def phase8(dev) -> tuple:
                          "bound_by": bound_by, "library_ms": None,
                          "gflop_per_move": totals["flops"] / 1e9,
                          "mb_per_move": totals["bytes"] / 1e6, "pairs_per_move": totals["pairs"],
-                         "shape_groups_per_move": totals["groups"]}
+                         "shape_groups_per_move": totals["groups"], "by_class": by_class}
     print(f"  block_gemm, the move's 10 tensordots: kernel {totals['ms']:.3f} ms, twin (the JAX "
           f"package's design: one bmm per shape group + index_add_) {totals['plain_ms']:.3f} ms, "
           f"bound {totals['bound_ms']:.4f} ms (sum of the calls'), {totals['pairs']} pairs in "
           f"{totals['groups']} groups, {totals['flops'] / 1e9:.2f} GFLOP, "
           f"{totals['bytes'] / 1e9:.2f} GB; library: none (no one torch call computes a "
           "charge-matched grouped contraction)")
+    csum = max(sum(v["ms"] for v in by_class.values()), 1e-12)
+    for name, v in sorted(by_class.items(), key=lambda kv: -kv[1]["ms"]):
+        print(f"  block_gemm class {name}: {v['ms']:.3f} ms over {v['dots']} tensordots "
+              f"({v['blocks']} blocks, {v['tiles']} tiles; each class launched alone), bound "
+              f"{v['bound_ms']:.4f} ms ({100 * v['bound_ms'] / max(v['ms'], 1e-12):.1f}% of it), "
+              f"{100 * v['ms'] / csum:.1f}% of the classes' time")
+    distinct = list({id(t): (src_p, t, numel) for src_p, t, numel, _ in perms}.values())
+    small = sorted(distinct, key=lambda d: d[1].total)[:2]
+    check(all(twin_plan_agrees(t, dev) for t in (calls_tables[0], calls_tables[1],
+                                                   *(d[1] for d in small))),
+          "the twins' index plans built on the card (chip_smoke.twin_plan) equal the host's "
+          f"on tensordots 1 and 2 ({calls_tables[0].npairs}, {calls_tables[1].npairs} pairs) "
+          f"and the two smallest permute tables ({small[0][1].total}, {small[1][1].total} "
+          "entries)")
+    del calls_tables
+    nbad = [j for j, (src_p, tab, numel) in enumerate(distinct)
+            if not permute_against_twin(src_p, tab, numel, dev)]
+    check(not nbad, f"block_permute on every permute table of the move ({len(distinct)} "
+                    "tables: operand layouts, transposes, the sector gathers, the isometry "
+                    f"scatters; {sum(t.total for _, t, _ in distinct)} entries): bit-exact"
+                    + (f"; tables {nbad} differ" if nbad else ""))
+    del distinct
+    del perms
     src, table = big_perm
+    twin_plan(table, dev)
     dst_k = torch.empty(table.total, dtype=src.data.dtype, device=dev)
     dst_t = torch.empty_like(dst_k)
     blocksparse.block_permute(src.data, dst_k, table)
     blocksparse.block_permute_twin(src.data, dst_t, table)
-    check(torch.equal(dst_k, dst_t), f"block_permute of the largest operand ({table.nblk} blocks, "
-                                     f"{table.total} entries, rank {table.rank}): bit-exact")
+    check(torch.equal(dst_k, dst_t), f"block_permute of the largest operand ({table.nblk} blocks "
+                                     f"in {len(table.c_soff)} boxes, {table.total} entries, rank "
+                                     f"{table.rank}): bit-exact")
     time_case(rec, "block_permute", lambda: blocksparse.block_permute(src.data, dst_k, table),
               lambda: blocksparse.block_permute_twin(src.data, dst_t, table), None,
               2 * 8 * table.total, 0, FP64_CC)
     rec["block_permute"]["library_ms"] = None
-    # the sector gather of the corner (K9's first step) on block_permute
+    # the sector gather of the corner (K9's first step) on block_permute, and its inverse
     M = ab_ctmrg.c2x2_sl(a, env.C, env.T)
     splan = ab_tensor._sector_plan(M, (0, 1, 2), (3, 4, 5))
     gk = torch.zeros(splan.numel, dtype=M.data.dtype, device=dev)
     gt = torch.zeros_like(gk)
     blocksparse.block_permute(M.data, gk, splan.table)
-    blocksparse.block_permute_twin(M.data, gt, splan.table)
+    blocksparse.block_permute_twin(M.data, gt, twin_plan(splan.table, dev))
     sizes = sorted(((q, v[7]) for q, v in splan.sectors.items()), key=lambda x: -x[1])
     check(torch.equal(gk, gt), f"block_permute sector gather of M ({len(M.struct.keys)} blocks "
                                f"into {len(sizes)} sector matrices, sides {[s for _, s in sizes]}): "
                                "bit-exact")
+    check(permute_against_twin(gk, splan.table.inverse(), M.data.numel(), dev),
+          "block_permute on the sector gather's inverse table (the sector matrices scattered "
+          "back into M's blocks): bit-exact")
     # the sector decompositions: SVD drivers on the largest +-q sector, eigh on q=0
     qbig = next(q for q, _ in sizes if q != 0)
     base, R, Cc = splan.sectors[qbig][6:9]
@@ -1758,8 +2039,9 @@ def phase8(dev) -> tuple:
     rec["frozen_commit"]["max_abs_err"] = max(rec["frozen_commit"]["max_abs_err"], err_commit)
     del nC, nT
 
-    # bench's case: 10 frozen moves (first call: host plans; second timed)
-    ab_frozen.run_frozen(a, C, T, keep, max_iter=AB_FROZEN_MOVES, conv_tol=0.0)
+    # bench's case: 10 frozen moves, timed after one warm-up move (the host
+    # plans: every frozen move has the same shapes)
+    ab_frozen.run_frozen(a, C, T, keep, max_iter=1, conv_tol=0.0)
     timers = PhaseTimers()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1989,7 +2271,7 @@ def phase9(dev) -> tuple:
     for i, (x, y, axes, out_like) in enumerate(calls):
         plan, abuf, bbuf = x.dot_operands(y, axes, out_like)
         G = rnd(plan.out.numel)
-        tab_a, tab_b = plan.gemm.grad_tables()
+        tab_a, tab_b = (twin_plan(t, dev) for t in plan.gemm.grad_tables())
         for side, tab, lhs, rhs, n_out in (("dA", tab_a, G, bbuf, abuf.numel()),
                                            ("dB", tab_b, abuf, G, bbuf.numel())):
             def kern(tab=tab, lhs=lhs, rhs=rhs, n_out=n_out):
@@ -2001,6 +2283,7 @@ def phase9(dev) -> tuple:
                     n_out, dtype=lhs.dtype, device=dev), tab)
 
             out_k, out_t = kern().clone(), twin()
+            same = torch.equal(out_k, kern())
             err = rel_err(out_k, out_t)
             err_max = max(err_max, float((out_k - out_t).abs().max()))
             ms_k, ms_t = min(cuda_ms(kern), cuda_ms(kern)), cuda_ms(twin, reps=2)
@@ -2009,11 +2292,14 @@ def phase9(dev) -> tuple:
             for key, v in (("ms", ms_k), ("plain_ms", ms_t), ("bound_ms", b_ms),
                            ("flops", flops), ("bytes", 8 * elems)):
                 tot[key] += v
-            check(err <= TOL[torch.float64],
+            classes = ", ".join(f"{blocksparse.CLASS_NAMES[c]} {int((tab.ob_kind == c).sum())}"
+                                for c in np.unique(tab.ob_kind))
+            check(err <= TOL[torch.float64] and same,
                   f"block_gemm {side} table of tensordot {i + 1}: {tab.npairs} pairs, {tab.nout} "
-                  f"blocks, {flops / 1e9:.3f} GFLOP, {8 * elems / 1e6:.1f} MB; kernel "
-                  f"{ms_k:.3f} ms, twin {ms_t:.3f} ms, bound {b_ms:.4f} ms ({b_by}); rel err "
-                  f"{err:.1e} <= 1e-12")
+                  f"blocks ({classes}), {tab.ntiles} tiles, {flops / 1e9:.3f} GFLOP, "
+                  f"{8 * elems / 1e6:.1f} MB; kernel {ms_k:.3f} ms, twin {ms_t:.3f} ms, bound "
+                  f"{b_ms:.4f} ms ({b_by}); rel err {err:.1e} <= 1e-12, two calls "
+                  f"bit-identical: {same}")
             del out_k, out_t
         for src, perm in ((x, plan.perm_a), (y, plan.perm_b)):
             if perm is not None and (big_perm is None or perm.total > big_perm[1].total):
@@ -2029,7 +2315,7 @@ def phase9(dev) -> tuple:
           f"kernel {tot['ms']:.3f} ms, twin {tot['plain_ms']:.3f} ms, bound "
           f"{tot['bound_ms']:.4f} ms, {tot['flops'] / 1e9:.2f} GFLOP, {tot['bytes'] / 1e9:.2f} GB")
     src, table = big_perm
-    inv = table.inverse()
+    inv = twin_plan(table.inverse(), dev)
     g = rnd(table.total)
     dk, dt = torch.zeros_like(src.data), torch.zeros_like(src.data)
     blocksparse.block_permute(g, dk, inv)
@@ -2271,23 +2557,119 @@ def gen_frozen(st, env, chi):
     return profiles, keeps, gfz.close_structure_generic(st, env, keeps)
 
 
+def gen_small_dynamic(st_c, where):
+    """Phase 10(f)'s dynamic run of the D=3 state on ``where``: the corner
+    spectra, the environment and the energy after GEN_SMALL_DYN sweeps."""
+    from tpeps_torch.ctm.generic_abelian import ctmrg as gct
+    from tpeps_torch.ctm.generic_abelian import env as genv
+    from tpeps_torch.models.abelian.j1j2 import J1J2_ABELIAN
+
+    cfg_s = gen_cfg(["--chi", str(GEN_SMALL_CHI), "--CTMARGS_ctm_max_iter", str(GEN_SMALL_DYN),
+                     "--CTMARGS_ctm_conv_tol", "0"])
+    st_s = st_c.to(where)
+    env_s, _ = gct.run(st_s, genv.init_env(st_s, GEN_SMALL_CHI), cfg_s.ctm)
+    return (gct._corner_spectra(env_s, GEN_SMALL_CHI), env_s,
+            float(J1J2_ABELIAN(j1=J1, j2=J2, device=where).energy_per_site(st_s, env_s)))
+
+
+def gen_small_frozen(st_c, envc_s, keeps_s, where):
+    """GEN_SMALL_FROZEN frozen sweeps of the D=3 state on ``where`` from the
+    CPU-built closed start: ``(env, sweeps, dist2)``."""
+    from tpeps_torch.ctm.generic_abelian import env as genv
+    from tpeps_torch.ctm.generic_abelian import frozen as gfz
+
+    e = genv.ENV_ABELIAN(GEN_SMALL_CHI, {k: t.to(where) for k, t in envc_s.C.items()},
+                         {k: t.to(where) for k, t in envc_s.T.items()})
+    return gfz.run_frozen_generic(st_c.to(where), e, keeps_s, max_iter=GEN_SMALL_FROZEN,
+                                  conv_tol=0.0)
+
+
+def gen_small_grad(st_g, profiles_g, ctx_g, where):
+    """The gradient of the training loss (normalized sites, the frozen fixed
+    point's implicit adjoint, the energy) on ``where`` from the CPU-built
+    context: ``(loss, gradient on the CPU, stats, central difference along
+    g/|g|)``, the last only off the CPU."""
+    from tpeps_torch.ctm.generic_abelian import env as genv
+    from tpeps_torch.ctm.generic_abelian import frozen as gfz
+    from tpeps_torch.models.abelian.j1j2 import J1J2_ABELIAN
+
+    st_w = st_g.to(where)
+    conv = gfz.make_converge_frozen_generic(st_w, GEN_GRAD_SMALL_CHI, profiles_g, gfz.MOVE_SEQ,
+                                            30, 1e-10, 1e-12)
+    pw = {c: a.data.clone().requires_grad_() for c, a in st_w.sites.items()}
+    sites = {c: flat_like(st_w.sites[c], pw[c]) for c in pw}
+    sites = {c: a * (1.0 / a.norm()) for c, a in sites.items()}
+    stats_w = {}
+    e_w = genv.ENV_ABELIAN(GEN_GRAD_SMALL_CHI, {k: t.to(where) for k, t in ctx_g.C.items()},
+                           {k: t.to(where) for k, t in ctx_g.T.items()})
+    envf = conv(sites, e_w, stats_w)
+    st_n = type(st_w)(st_w.sym, sites, st_w.vertexToSite, st_w.lX, st_w.lY)
+    lw = J1J2_ABELIAN(j1=J1, j2=J2, device=where).energy_per_site(st_n, envf)
+    gw = torch.autograd.grad(lw, list(pw.values()))
+    fd_g = None
+    if where != "cpu":  # a step along -g descends: the central difference along g/|g|
+        gn = float(torch.sqrt(sum((x ** 2).sum() for x in gw)))
+        dv = {c: x / gn for c, x in zip(pw, gw)}
+        with torch.no_grad():
+            def loss_at(sign):
+                s_ = {c: flat_like(st_w.sites[c], st_w.sites[c].data + sign * 1e-5 * dv[c])
+                      for c in pw}
+                s_ = {c: a * (1.0 / a.norm()) for c, a in s_.items()}
+                st_s = type(st_w)(st_w.sym, s_, st_w.vertexToSite, st_w.lX, st_w.lY)
+                return float(J1J2_ABELIAN(j1=J1, j2=J2, device=where).energy_per_site(
+                    st_s, conv(s_, e_w)))
+            fd_g = (loss_at(1.0) - loss_at(-1.0)) / 2e-5
+    return (float(lw.detach()), torch.cat([x.reshape(-1).cpu() for x in gw]), stats_w, fd_g)
+
+
+def gen_small_cpu() -> dict:
+    """Phase 10(f)'s CPU side, run in a worker process on one torch thread
+    while the card runs (b)-(c): the D=3 state, its dynamic run, the closed
+    frozen start and the frozen run from it, and on the Neel state of the CPU
+    tests (whose frozen sweep reaches its fixed point) the context and the
+    gradient."""
+    from tpeps_torch.models.abelian.j1j2 import J1J2_ABELIAN
+    from tpeps_torch.optim.abelian import generic_abelian_losses
+
+    torch.set_num_threads(1)
+    t0 = time.perf_counter()
+    st_c = gen_state(AB_SMALL_AUX, "cpu", seed=1)
+    dyn = gen_small_dynamic(st_c, "cpu")
+    _, keeps_s, envc_s = gen_frozen(st_c, dyn[1], GEN_SMALL_CHI)
+    frozen = gen_small_frozen(st_c, envc_s, keeps_s, "cpu")
+    st_g = neel_state_np(AB_SMALL_AUX)
+    cfg_g = gen_cfg(["--chi", str(GEN_GRAD_SMALL_CHI), "--CTMARGS_ctm_max_iter", "30",
+                     "--CTMARGS_ctm_conv_tol", "1e-10", "--GLOBALARGS_device", "cpu"])
+    _, ctx_fn_g, _, _ = generic_abelian_losses(st_g, J1J2_ABELIAN(
+        j1=J1, j2=J2, device="cpu").energy_per_site, cfg_g)
+    with torch.no_grad():
+        profiles_g, ctx_g = ctx_fn_g({c: a.data for c, a in st_g.sites.items()})
+    grad = gen_small_grad(st_g, profiles_g, ctx_g, "cpu")
+    return {"state": st_c, "dynamic": dyn, "frozen_start": (keeps_s, envc_s), "frozen": frozen,
+            "grad_context": (st_g, profiles_g, ctx_g), "grad": grad,
+            "seconds": time.perf_counter() - t0}
+
+
 def phase10(dev) -> tuple:
     print(f"== phase 10: the generic abelian slice, U(1) 2-site bipartite J1-J2 D=8 "
           f"chi={AB_CHI} float64", flush=True)
     from tpeps_torch.ctm.generic_abelian import ctmrg as gct
-    from tpeps_torch.ctm.generic_abelian import env as genv
     from tpeps_torch.ctm.generic_abelian import frozen as gfz
     from tpeps_torch.examples.j1j2.abelian import ctmrg_j1j2_u1
     from tpeps_torch.examples.j1j2.abelian.optim_j1j2_u1 import main as gen_opt_main
     from tpeps_torch.kernels import frozen_generic as kgen
-    from tpeps_torch.kernels import launch_counts, reset_launch_counts
+    from tpeps_torch.kernels import blocksparse, launch_counts, reset_launch_counts
     from tpeps_torch.models.abelian.j1j2 import J1J2_ABELIAN
     from tpeps_torch.optim import abelian as gen_optim
-    from tpeps_torch.optim.abelian import generic_abelian_losses
     from tpeps_torch.profiling import PhaseTimers
     from tpeps_torch.sym import tensor as ab_tensor
     from tpeps_torch.sym.io import write_ipeps_abelian
 
+    # (f)'s CPU side runs in a worker process meanwhile (spawned: no CUDA
+    # state is forked)
+    pool = concurrent.futures.ProcessPoolExecutor(
+        1, mp_context=multiprocessing.get_context("spawn"))
+    small_cpu = pool.submit(gen_small_cpu)
     # the plans of phases 8-9 hold the twins' element indices on the card
     # (GBs at D=8): drop them, so that the peaks below are this phase's
     ab_tensor.PLANS.clear()
@@ -2341,7 +2723,40 @@ def phase10(dev) -> tuple:
               "generic entry point: energy and observables finite")
         check(counts_entry["block_gemm"] > 0 and counts_entry["block_permute"] > 0,
               "the generic entry point launched block_gemm and block_permute")
-        wall_b, dev_b = busy_share(lambda: gct.ctm_move(dirs[0], st, envs[-1], AB_CHI, AB_PK))
+        (wall_b, dev_b), gcalls = record_dots(
+            lambda: busy_share(lambda: gct.ctm_move(dirs[0], st, envs[-1], AB_CHI, AB_PK)))
+        # every distinct table twice (bit-identical); against the twin, whose
+        # host index arrays cost ~1.5 s a table here, the first table of each
+        # class mix (the set of classes its output blocks fall in)
+        t_k8, gres, same_all, tables, mixes, gk = time.perf_counter(), [], [], [], set(), {}
+        for x, y, axes, out_like in gcalls:
+            plan, abuf, bbuf = x.dot_operands(y, axes, out_like)
+            tab = plan.gemm
+            if any(tab is t for t in tables):
+                continue
+            tables.append(tab)
+            kinds = np.unique(tab.ob_kind)
+            mix = tuple(blocksparse.CLASS_NAMES[c] for c in kinds)
+            for c, name in zip(kinds, mix):
+                gk[name] = gk.get(name, 0) + int((tab.ob_kind == c).sum())
+            if mix in mixes:
+                mk = lambda: torch.full((plan.out.numel,), 7.0, dtype=abuf.dtype,  # noqa
+                                        device=dev)
+                same_all.append(torch.equal(blocksparse.block_gemm(abuf, bbuf, mk(), tab),
+                                            blocksparse.block_gemm(abuf, bbuf, mk(), tab)))
+                continue
+            mixes.add(mix)
+            e, same = gemm_against_twin(tab, abuf, bbuf, plan.out.numel, dev)
+            gres.append((e, mix))
+            same_all.append(same)
+        check(all(e <= TOL[torch.float64] for e, _ in gres) and all(same_all),
+              f"block_gemm on one directional move's {len(gcalls)} tensordots ({len(tables)} "
+              f"distinct tables, two calls bit-identical each) of the generic cell; the "
+              f"first table of each of its {len(gres)} class mixes against the twin: max rel "
+              f"err {max(e for e, _ in gres):.1e} <= 1e-12 (mixes "
+              + "; ".join(f"{'+'.join(m)} {e:.1e}" for e, m in gres)
+              + f"); output blocks by class {gk}; {time.perf_counter() - t_k8:.1f} s")
+        del gcalls, gres, tables
         print(f"  one more dynamic directional move (a sixth of a sweep) under the profiler "
               f"(plans cached): {1000 * wall_b:.1f} ms, busy share {dev_b / wall_b:.3f} "
               f"({1000 * dev_b:.1f} ms device)")
@@ -2506,75 +2921,30 @@ def phase10(dev) -> tuple:
 
     rec["generic_epilogue_vjp"].update(rec_t)
 
-    # (f) D=3: card against the CPU twins from one CPU-built start
-    st_c = gen_state(AB_SMALL_AUX, "cpu", seed=1)
-    cfg_s = gen_cfg(["--chi", str(GEN_SMALL_CHI), "--CTMARGS_ctm_max_iter", str(GEN_SMALL_DYN),
-                     "--CTMARGS_ctm_conv_tol", "0"])
-    out = []
-    for where in ("cpu", dev):
-        st_s = st_c.to(where)
-        env_s, _ = gct.run(st_s, genv.init_env(st_s, GEN_SMALL_CHI), cfg_s.ctm)
-        out.append((gct._corner_spectra(env_s, GEN_SMALL_CHI), env_s, float(
-            J1J2_ABELIAN(j1=J1, j2=J2, device=where).energy_per_site(st_s, env_s))))
+    # (f) D=3: card against the CPU twins, whose side the worker started at
+    # the top of this phase computed from the same seeds
+    ref = small_cpu.result()
+    pool.shutdown()
+    print(f"  D=3 CPU side from the worker process: {ref['seconds']:.1f} s, overlapped with "
+          "(b)-(c)")
+    st_c = ref["state"]
+    out = [ref["dynamic"], gen_small_dynamic(st_c, dev)]
     d_spec = float(np.abs(out[0][0] - out[1][0]).max())
     check(d_spec <= AB_SMALL_TOL and abs(out[0][2] - out[1][2]) <= AB_SMALL_TOL,
           f"D=3 chi={GEN_SMALL_CHI} card vs CPU: {GEN_SMALL_DYN} dynamic sweeps' corner spectra "
           f"max diff {d_spec:.2e}, energy |dE| {abs(out[0][2] - out[1][2]):.2e} <= "
           f"{AB_SMALL_TOL:.0e}")
-    _, keeps_s, envc_s = gen_frozen(st_c, out[0][1], GEN_SMALL_CHI)
-    res = []
-    for where in ("cpu", dev):
-        e = genv.ENV_ABELIAN(GEN_SMALL_CHI, {k: t.to(where) for k, t in envc_s.C.items()},
-                             {k: t.to(where) for k, t in envc_s.T.items()})
-        res.append(gfz.run_frozen_generic(st_c.to(where), e, keeps_s, max_iter=GEN_SMALL_FROZEN,
-                                          conv_tol=0.0))
-    (ec, nc, dc), (ed, nd, dd) = res
+    keeps_s, envc_s = ref["frozen_start"]
+    (ec, nc, dc), (ed, nd, dd) = ref["frozen"], gen_small_frozen(st_c, envc_s, keeps_s, dev)
     e_C = max(float((ec.C[k].data - ed.C[k].data.cpu()).abs().max()) for k in ec.C)
     e_T = max(float((ec.T[k].data.abs() - ed.T[k].data.cpu().abs()).abs().max()) for k in ec.T)
     e_Ts = max(float((ec.T[k].data - ed.T[k].data.cpu()).abs().max()) for k in ec.T)
     check(nc == nd and e_C <= AB_SMALL_TOL and e_T <= AB_SMALL_TOL,
           f"D=3 frozen {nc} sweeps card vs CPU: C elementwise {e_C:.2e}, |T| elementwise "
           f"{e_T:.2e} <= {AB_SMALL_TOL:.0e} (T signed {e_Ts:.2e}), dist2 {dd:.6e} vs {dc:.6e}")
-    # the gradient of the training loss (normalized sites, the frozen fixed
-    # point's implicit adjoint, the energy) from one CPU-built context, on the
-    # Neel state of the CPU tests, whose frozen sweep reaches its fixed point
-    st_g = neel_state_np(AB_SMALL_AUX)
-    cfg_g = gen_cfg(["--chi", str(GEN_GRAD_SMALL_CHI), "--CTMARGS_ctm_max_iter", "30",
-                     "--CTMARGS_ctm_conv_tol", "1e-10", "--GLOBALARGS_device", "cpu"])
-    _, ctx_fn_g, _, _ = generic_abelian_losses(st_g, J1J2_ABELIAN(
-        j1=J1, j2=J2, device="cpu").energy_per_site, cfg_g)
-    with torch.no_grad():
-        profiles_g, ctx_g = ctx_fn_g({c: a.data for c, a in st_g.sites.items()})
-    grads = []
-    for where in ("cpu", dev):
-        st_w = st_g.to(where)
-        conv = gfz.make_converge_frozen_generic(st_w, GEN_GRAD_SMALL_CHI, profiles_g,
-                                                gfz.MOVE_SEQ, 30, 1e-10, 1e-12)
-        pw = {c: a.data.clone().requires_grad_() for c, a in st_w.sites.items()}
-        sites = {c: flat_like(st_w.sites[c], pw[c]) for c in pw}
-        sites = {c: a * (1.0 / a.norm()) for c, a in sites.items()}
-        stats_w = {}
-        e_w = genv.ENV_ABELIAN(GEN_GRAD_SMALL_CHI, {k: t.to(where) for k, t in ctx_g.C.items()},
-                               {k: t.to(where) for k, t in ctx_g.T.items()})
-        envf = conv(sites, e_w, stats_w)
-        st_n = type(st_w)(st_w.sym, sites, st_w.vertexToSite, st_w.lX, st_w.lY)
-        lw = J1J2_ABELIAN(j1=J1, j2=J2, device=where).energy_per_site(st_n, envf)
-        gw = torch.autograd.grad(lw, list(pw.values()))
-        grads.append((float(lw.detach()), torch.cat([x.reshape(-1).cpu() for x in gw]),
-                      stats_w))
-        if where != "cpu":  # a step along -g descends: the central difference along g/|g|
-            gn = float(torch.sqrt(sum((x ** 2).sum() for x in gw)))
-            dv = {c: x / gn for c, x in zip(pw, gw)}
-            with torch.no_grad():
-                def loss_at(sign):
-                    s_ = {c: flat_like(st_w.sites[c], st_w.sites[c].data + sign * 1e-5 * dv[c])
-                          for c in pw}
-                    s_ = {c: a * (1.0 / a.norm()) for c, a in s_.items()}
-                    st_s = type(st_w)(st_w.sym, s_, st_w.vertexToSite, st_w.lX, st_w.lY)
-                    return float(J1J2_ABELIAN(j1=J1, j2=J2, device=where).energy_per_site(
-                        st_s, conv(s_, e_w)))
-                fd_g = (loss_at(1.0) - loss_at(-1.0)) / 2e-5
-    (lc, gc, sc), (ld, gd, sd) = grads
+    st_g, profiles_g, ctx_g = ref["grad_context"]
+    (lc, gc, sc, _), (ld, gd, sd, fd_g) = ref["grad"], gen_small_grad(st_g, profiles_g, ctx_g,
+                                                                      dev)
     check(math.isfinite(fd_g) and fd_g > 0,
           f"D=3 chi={GEN_GRAD_SMALL_CHI} on the card, a step along -g descends: the central "
           f"difference along g/|g| (h=1e-5) {fd_g:.9e} > 0, |g| {float(gd.norm()):.9e}, "
@@ -2616,21 +2986,23 @@ ABLATIONS = {"cholqr.cu": {0: "whole", 1: "no loads", 2: "no MMAs", 3: "no loads
                                  "-DTPEPS_K2_WM=2": "64-row tiles",
                                  "-DTPEPS_K2_WM=3": "96-row tiles",
                                  "-DTPEPS_K2_STAGES=3": "3 stages"},
+             "block_sparse.cu": {0: "whole"},
              "polar.cu": {0: "whole", 8: "every step to the cap", 9: "no exchange",
                           10: "no products", 13: "no exchange, no step barrier",
                           16: "no staging", 32: "no gather",
                           "-DTPEPS_POLAR_DEPTH=3": "12 k-steps of loads in flight"}}
 ABLATE_KERNELS = ("gram_kernel", "ozaki_gemm_kernel", "trsm_kernel", "block_jacobi",
                   "double_layer_kernel", "corner_dmma_kernel", "layer_dmma_kernel",
-                  "dmma_gemm_kernel", "polar_kernel", "polar_vjp_kernel")
+                  "dmma_gemm_kernel", "polar_kernel", "polar_vjp_kernel", "block_gemm_kernel",
+                  "block_permute_kernel")
 # the parts of ablate(): the sources each builds, and those of the parent it needs
 ABLATE_GROUPS = {"gram": ("cholqr.cu",), "ozaki": ("ozaki.cu",), "solves": ("cholqr.cu",),
                  "eigh": ("eigh_small.cu",), "fused": ("double_layer.cu", "corner_apply.cu"),
-                 "polar": ("polar.cu",)}
+                 "polar": ("polar.cu",), "k8": ("block_sparse.cu",)}
 # the parent's sources each part times, and the sources linked with each
 # (the parent's polar.cu calls the Gram of its cholqr.cu)
 ABLATE_PARENT = {"solves": ("cholqr.cu",), "fused": ("layer_contract.cu", "corner_apply.cu"),
-                 "polar": ("polar.cu",)}
+                 "polar": ("polar.cu",), "k8": ("block_sparse.cu",)}
 PARENT_LINKED = {"polar.cu": ("cholqr.cu",)}
 
 
@@ -2678,9 +3050,13 @@ def ablate(parent=None, only=None) -> dict:
     and its solves, layers, corner apply and K6 timed first and last in the
     same turns (parent, change, change, parent), and the cold start and the
     graphed move are timed in each checkout (:func:`move_compare`).
+    K8 (:func:`ablate_k8`, ``k8``): with ``parent``, its
+    ``block_sparse.cu`` beside this one, and the frozen move, the cached
+    dynamic move, one adjoint iteration and host planning in each checkout
+    (:func:`k8_move_compare`).
     ``only`` names the parts to run (:data:`ABLATE_GROUPS`).  Run by
     ``chip_smoke.py --ablate [--parent DIR]
-    [--only gram,ozaki,solves,eigh,fused,polar]``."""
+    [--only gram,ozaki,solves,eigh,fused,polar,k8]``."""
     from tpeps_torch.kernels import build as kb
 
     groups = tuple(ABLATE_GROUPS) if only is None else tuple(only)
@@ -2740,6 +3116,10 @@ def ablate(parent=None, only=None) -> dict:
         return torch.cuda.current_stream(dev).cuda_stream
 
     rec = {}
+    if "k8" in groups:
+        rec.update(ablate_k8(libs, in_turns, stream, dev, parent is not None))
+        if parent is not None:
+            rec["k8_moves"] = k8_move_compare(parent)
     if "polar" in groups:
         rec.update(ablate_polar(libs, in_turns, stream, dev, parent is not None))
     if parent is not None and {"fused", "polar"} & set(groups):
@@ -3143,6 +3523,282 @@ def ablate_fused(libs, in_turns, stream, dev, with_parent) -> dict:
 # two such runs: the first builds and warms up), then one eager move's peak
 # memory and time, and the graphed move's (MoveGraph, 4 moves a replay): run
 # in a checkout's root by move_compare
+def parent_gemm_tiles(m, n) -> np.ndarray:
+    """The parent's ``block_gemm`` tile list (one size for all: 64 x 64 tiles
+    of blocks at least 16 wide, else 128 elements a tile), for timing its
+    kernel on this checkout's tables."""
+    m, n = np.asarray(m, np.int64), np.asarray(n, np.int64)
+    big = (m >= 16) & (n >= 16)
+    ncol = (n + 63) // 64
+    nt = np.where(big, (m + 63) // 64 * ncol, (m * n + 127) // 128)
+    o = np.repeat(np.arange(len(m)), nt)
+    local = np.arange(int(nt.sum())) - np.repeat(np.cumsum(nt) - nt, nt)
+    kind = big[o]
+    r0 = np.where(kind, (local // ncol[o]) * 64, local * 128)
+    c0 = np.where(kind, (local % ncol[o]) * 64, 0)
+    return np.stack([o, kind, r0, c0], axis=1).astype(np.int32)
+
+
+def ablate_k8(libs, in_turns, stream, dev, with_parent) -> dict:
+    """:func:`ablate`'s part for K8 at the D=8 U(1) C4v shapes (phase 8's
+    state after its warm-up moves): ``block_gemm`` on each of a dynamic
+    move's ten tensordots and on the twenty backward tables of a frozen
+    move's, ``block_permute`` on the largest operand's table and its inverse,
+    each through this checkout's ``block_sparse.cu`` and, with the parent, its kernel
+    on its own tile list and table layout (first and last in the turns),
+    in CUDA graphs; the permutes beside their twin."""
+    from tpeps_torch.ctm.c4v_abelian import ctmrg as ab_ctmrg
+    from tpeps_torch.ctm.c4v_abelian import frozen as ab_frozen
+    from tpeps_torch.ctm.c4v_abelian.env import init_env as ab_init_env
+    from tpeps_torch.kernels import blocksparse
+
+    vp, ci, c64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    st = ab_state(AB_AUX, dev)
+    a = st.site((0, 0))
+    env = ab_init_env(st, AB_CHI)
+    for _ in range(AB_WARM_MOVES):
+        env = ab_ctmrg.ctm_move_sl(a, env, AB_PK)
+    keep = ab_frozen.freeze_from_env(env)
+    C, T = ab_frozen.close_structure(a, env.C, env.T, dict(keep))
+    _, calls = record_dots(lambda: ab_ctmrg.ctm_move_sl(a, env, AB_PK))
+    _, fcalls = record_dots(lambda: ab_frozen._move_raw(a, C, T, dict(keep)))
+    mine = {ABLATIONS["block_sparse.cu"][key]: lib for (src, key), lib in libs.items()
+            if src == "block_sparse.cu" and key != "parent"}
+    parent = libs.get(("block_sparse.cu", "parent")) if with_parent else None
+    if parent is not None:  # the parent's C signatures
+        parent.tpeps_block_gemm_f64.argtypes = (vp,) * 12 + (ci, ci, ci, vp)
+        parent.tpeps_block_permute_f64.argtypes = (vp,) * 9 + (ci, ci, c64, vp)
+    gen = torch.Generator(device=dev).manual_seed(9)
+    rnd = lambda n: torch.rand(n, generator=gen, device=dev, dtype=torch.float64) - 0.5  # noqa
+
+    def gemm_calls(t, lhs, rhs, out):
+        tt = t.on(dev)
+        cnt, scr = blocksparse.workspace(dev, out.dtype, t)
+        fns = {}
+        if parent is not None:
+            ptiles = torch.from_numpy(parent_gemm_tiles(t.ob_m, t.ob_n)).to(dev)
+
+            def f_parent(ptiles=ptiles):
+                err = parent.tpeps_block_gemm_f64(
+                    lhs.data_ptr(), rhs.data_ptr(), out.data_ptr(), tt["ob_off"].data_ptr(),
+                    tt["ob_m"].data_ptr(), tt["ob_n"].data_ptr(), tt["ob_ptr"].data_ptr(),
+                    tt["pr_a"].data_ptr(), tt["pr_b"].data_ptr(), tt["pr_k"].data_ptr(),
+                    tt["pr_s"].data_ptr(), ptiles.data_ptr(), len(ptiles), int(t.trans_a),
+                    int(t.trans_b), stream())
+                if err:
+                    fail(f"parent block_gemm launch: CUDA error {err}")
+            fns["parent"] = f_parent
+        for label, lib in mine.items():
+            def f(lib=lib):
+                err = lib.tpeps_block_gemm_f64(
+                    lhs.data_ptr(), rhs.data_ptr(), out.data_ptr(), tt["ob_off"].data_ptr(),
+                    tt["ob_m"].data_ptr(), tt["ob_n"].data_ptr(), tt["ob_ptr"].data_ptr(),
+                    tt["pr_a"].data_ptr(), tt["pr_b"].data_ptr(), tt["pr_k"].data_ptr(),
+                    tt["pr_s"].data_ptr(), tt["tiles"].data_ptr(), tt["units"].data_ptr(),
+                    tt["grp_base"].data_ptr(), tt["grp_n"].data_ptr(), cnt.data_ptr(),
+                    scr.data_ptr(), t.ntiles, t.kinds, int(t.trans_a), int(t.trans_b), stream())
+                if err:
+                    fail(f"block_gemm launch: CUDA error {err}")
+            fns[label] = f
+        if parent is not None:
+            fns["parent, again"] = fns["parent"]
+        return fns
+
+    def permute_calls(t, src, dst):
+        tt = t.on(dev)
+        fns = {}
+        if parent is not None:
+            old = {f: torch.from_numpy(np.ascontiguousarray(getattr(t, f))).to(dev)
+                   for f in ("soff", "doff", "shape", "sstr", "dstr")}
+            sizes = t.shape.astype(np.int64).prod(axis=1)  # its per-element search table
+            old["ecum"] = torch.from_numpy(np.concatenate([[0], np.cumsum(sizes)])).to(dev)
+            sc = None if t.scale is None else torch.from_numpy(t.scale).to(dev)
+
+            def f_parent(old=old, sc=sc):
+                err = parent.tpeps_block_permute_f64(
+                    src.data_ptr(), dst.data_ptr(), old["ecum"].data_ptr(),
+                    old["soff"].data_ptr(), old["doff"].data_ptr(), old["shape"].data_ptr(),
+                    old["sstr"].data_ptr(), old["dstr"].data_ptr(),
+                    None if sc is None else sc.data_ptr(), t.nblk, t.rank, t.total, stream())
+                if err:
+                    fail(f"parent block_permute launch: CUDA error {err}")
+            fns["parent"] = f_parent
+        for label, lib in mine.items():
+            def f(lib=lib):
+                err = lib.tpeps_block_permute_f64(
+                    src.data_ptr(), dst.data_ptr(), tt["c_soff"].data_ptr(),
+                    tt["c_doff"].data_ptr(), tt["c_meta"].data_ptr(),
+                    tt["c_scale"].data_ptr() if "c_scale" in tt else None,
+                    tt["tile_ptr"].data_ptr(), t.ntiles, t.rank, stream())
+                if err:
+                    fail(f"block_permute launch: CUDA error {err}")
+            fns[label] = f
+        fns["twin"] = lambda: blocksparse.block_permute_twin(src, dst, t)
+        if parent is not None:
+            fns["parent, again"] = fns["parent"]
+        return fns
+
+    def timed(name, fns, out, bound_ms, classes=""):
+        ref = None
+        for label, f in fns.items():  # every copy and the parent give the same result
+            out.fill_(7.0)
+            f()
+            if ref is None:
+                ref = out.clone()
+            else:
+                check(rel_err(out, ref) <= TOL[torch.float64],
+                      f"{name}: {label} agrees with {next(iter(fns))}")
+        ms = in_turns(fns, 10, 5)
+        print(f"  K8 {name}{classes}: " + ", ".join(f"{k} {v:.4f}" for k, v in ms.items())
+              + f" ms; bound {bound_ms:.4f}", flush=True)
+        return {**ms, "bound_ms": bound_ms}
+
+    rec, sums = {}, {}
+
+    def add(group, ms):
+        acc = sums.setdefault(group, {})
+        for k, v in ms.items():
+            acc[k] = acc.get(k, 0.0) + v
+
+    big = None
+    for i, (x, y, axes, out_like) in enumerate(calls):
+        plan, A, B = x.dot_operands(y, axes, out_like)
+        t = plan.gemm
+        out = torch.empty(plan.out.numel, dtype=A.dtype, device=dev)
+        fl, el = t.work()
+        cls = ", ".join(f"{blocksparse.CLASS_NAMES[c]} {int((t.ob_kind == c).sum())}"
+                        for c in np.unique(t.ob_kind))
+        r = timed(f"tensordot {i + 1}", gemm_calls(t, A, B, out), out,
+                  bound(8 * el, fl, FP64_TC)[0], f" ({cls})")
+        rec[f"block_gemm tensordot {i + 1}"] = r
+        add("the move's 10 tensordots", r)
+        for src, p in ((x, plan.perm_a), (y, plan.perm_b)):
+            if p is not None and (big is None or p.total > big[1].total):
+                big = (src, p)
+    for i, (x, y, axes, out_like) in enumerate(fcalls):
+        plan, A, B = x.dot_operands(y, axes, out_like)
+        G = rnd(plan.out.numel)
+        ta, tb = plan.gemm.grad_tables()
+        for side, t, lhs, rhs, n in (("dA", ta, G, B, A.numel()), ("dB", tb, A, G, B.numel())):
+            out = torch.zeros(n, dtype=A.dtype, device=dev)
+            fl, el = t.work()
+            cls = ", ".join(f"{blocksparse.CLASS_NAMES[c]} {int((t.ob_kind == c).sum())}"
+                            for c in np.unique(t.ob_kind))
+            r = timed(f"{side} table of tensordot {i + 1}", gemm_calls(t, lhs, rhs, out), out,
+                      bound(8 * el, fl, FP64_TC)[0], f" ({cls})")
+            rec[f"block_gemm {side} table {i + 1}"] = r
+            add("a frozen move's 20 backward tables", r)
+            if side == "dB" and set(np.unique(t.ob_kind)) == {blocksparse.SPLIT}:
+                add("the four dB tables of the skinny tensordots", r)
+        del G
+    src, p = big
+    out = torch.empty(p.total, dtype=src.data.dtype, device=dev)
+    rec["block_permute largest operand"] = timed(
+        f"block_permute, the largest operand ({p.nblk} blocks, {p.total} entries)",
+        permute_calls(p, src.data, out), out, 2 * 8 * p.total / HBM_BPS * 1e3)
+    g = rnd(p.total)
+    out = torch.zeros(src.data.numel(), dtype=src.data.dtype, device=dev)
+    rec["block_permute inverse"] = timed("block_permute, its inverse table",
+                                         permute_calls(p.inverse(), g, out), out,
+                                         2 * 8 * p.total / HBM_BPS * 1e3)
+    for group, acc in sums.items():
+        print(f"  K8 {group}: " + ", ".join(f"{k} {v:.4f}" for k, v in acc.items()) + " ms")
+        rec[f"sum: {group}"] = acc
+    return rec
+
+
+K8_MOVE_CODE = r"""
+import json, time, torch
+from tpeps_torch.ctm.c4v_abelian import ctmrg, frozen
+from tpeps_torch.ctm.c4v_abelian.env import init_env
+from tpeps_torch.ipeps.ipeps_abelian import random_c4v_abelian
+from tpeps_torch.sym.tensor import AbelianTensor, leg, plan_cache_stats
+torch.backends.cuda.matmul.allow_tf32 = False
+dev, sync = torch.device("cuda", 0), torch.cuda.synchronize
+PK = dict(svd_reltol=1e-12, eps_multiplet=1e-12)
+st = random_c4v_abelian(torch.Generator().manual_seed(0), "U1", leg({-1: 1, 1: 1}),
+                        leg({-2: 1, -1: 2, 0: 2, 1: 2, 2: 1}), 1).to(dev)
+a = st.site((0, 0))
+env = init_env(st, 160)
+first = []
+for _ in range(4):  # the first dynamic moves build their plans as they go
+    b0 = plan_cache_stats()["build_seconds"]
+    sync()
+    t0 = time.perf_counter()
+    prev, env = env, ctmrg.ctm_move_sl(a, env, PK)
+    sync()
+    first.append((time.perf_counter() - t0, plan_cache_stats()["build_seconds"] - b0))
+cached = []
+for _ in range(3):  # the last move again: every plan cached
+    sync()
+    t0 = time.perf_counter()
+    ctmrg.ctm_move_sl(a, prev, PK)
+    sync()
+    cached.append(time.perf_counter() - t0)
+keep = frozen.freeze_from_env(env)
+C, T = frozen.close_structure(a, env.C, env.T, dict(keep))
+frozen.run_frozen(a, C, T, dict(keep), max_iter=1, conv_tol=0.0)
+sync()
+t0 = time.perf_counter()
+frozen.run_frozen(a, C, T, dict(keep), max_iter=3, conv_tol=0.0)
+sync()
+frozen_ms = (time.perf_counter() - t0) / 3 * 1e3
+leaves = [x.data.detach().requires_grad_() for x in (a, C, T)]
+sync()
+t0 = time.perf_counter()
+with torch.enable_grad():
+    yC, yT = frozen.move_frozen(*(AbelianTensor._flat(x, x.struct, v) for x, v in
+                                  zip((a, C, T), leaves)), dict(keep), 1e-12, sg_norm=False)
+sync()
+graph_ms = (time.perf_counter() - t0) * 1e3
+gen = torch.Generator(device=dev).manual_seed(1)
+u = [torch.rand(y.data.shape, generator=gen, device=dev, dtype=torch.float64) - 0.5
+     for y in (yC, yT)]
+vjp = []
+for _ in range(3):  # an adjoint iteration: the move's VJP on the built graph
+    sync()
+    t0 = time.perf_counter()
+    torch.autograd.grad([yC.data, yT.data], leaves, grad_outputs=u, retain_graph=True,
+                        allow_unused=True)
+    sync()
+    vjp.append((time.perf_counter() - t0) * 1e3)
+print("K8MOVE " + json.dumps({
+    "first_4_dynamic_moves_ms": [1e3 * w for w, _ in first],
+    "host_planning_ms_per_move": [1e3 * p for _, p in first],
+    "plans_built_s": sum(p for _, p in first),
+    "cached_dynamic_move_ms": 1e3 * min(cached), "frozen_move_ms": frozen_ms,
+    "frozen_move_graph_ms": graph_ms, "adjoint_iteration_ms": min(vjp)}))
+"""
+
+
+def k8_move_compare(parent) -> dict:
+    """A frozen move, a cached dynamic move and an adjoint iteration (the
+    move's VJP on its built graph) at phase 8's D=8 state, and the host
+    planning of the first four dynamic moves (an empty plan cache), in the
+    parent's checkout and in this one, in turns (parent, change, change,
+    parent), each in a process of its own (:data:`K8_MOVE_CODE`)."""
+    out = {}
+    here = Path(__file__).resolve().parent
+    for i, (label, cwd) in enumerate((("parent", Path(parent)), ("change", here),
+                                      ("change", here), ("parent", Path(parent)))):
+        proc = subprocess.run([sys.executable, "-c", K8_MOVE_CODE], cwd=cwd, capture_output=True,
+                              text=True, timeout=900)
+        line = [ln for ln in proc.stdout.splitlines() if ln.startswith("K8MOVE ")]
+        check(proc.returncode == 0 and bool(line),
+              f"K8 moves in {label}'s checkout: rc {proc.returncode} {proc.stderr[-2000:]}")
+        r = json.loads(line[-1][7:])
+        out[f"{label} {i}"] = r
+        print(f"  K8 moves ({label}): frozen move {r['frozen_move_ms']:.2f} ms, cached dynamic "
+              f"move {r['cached_dynamic_move_ms']:.2f} ms, adjoint iteration "
+              f"{r['adjoint_iteration_ms']:.2f} ms (the move's graph built in "
+              f"{r['frozen_move_graph_ms']:.2f} ms); first 4 dynamic moves "
+              + ", ".join(f"{x:.1f}" for x in r["first_4_dynamic_moves_ms"])
+              + " ms, of them host planning "
+              + ", ".join(f"{x:.1f}" for x in r["host_planning_ms_per_move"])
+              + f" ms, plans built in {r['plans_built_s']:.2f} s", flush=True)
+    return out
+
+
 MOVE_CODE = r"""
 import json, time, numpy as np, torch
 from tpeps_torch.ctm.c4v import move_factored as mf
@@ -3216,10 +3872,8 @@ def move_compare(parent) -> dict:
 
 
 def main() -> None:
-    t_start = time.perf_counter()
-
     def lap(n):  # the script's seconds so far, at the end of phase n
-        print(f"  phase {n} ended at {time.perf_counter() - t_start:.1f} s", flush=True)
+        print(f"  phase {n} ended at {time.perf_counter() - T_START:.1f} s", flush=True)
 
     smi = phase0()
     dev = torch.device("cuda", 0)
@@ -3250,6 +3904,7 @@ def main() -> None:
     rec.update(rec_gen)
     lap(10)
     rec["polar_unitary"]["steps_by_run"] = K6_STEPS
+    rec["polar_unitary"]["dropped_w_by_run"] = K6_DROPPED
     # launches: on the training path for its kernels, on the large-D slice
     # for K5/K7, on the abelian entry point for K8 and converge_frozen for
     # K9, on the abelian training entry point for K8's and K9's backward,

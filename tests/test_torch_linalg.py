@@ -314,3 +314,39 @@ def test_polar_step_cap_sits_between_the_guard_edge_and_the_ridge():
     Wm, steps = _ns_polar_model(torch.from_numpy(O))
     assert steps == MAX_STEPS
     np.testing.assert_array_equal(Wm.numpy(), np.eye(_K6))
+
+
+@pytest.mark.parametrize("ratio", [1e-10, 3e-11, 1e-11, 3e-12, 1e-12])
+def test_polar_between_the_guard_edge_and_the_ridge(ratio, record_property):
+    """Graded overlaps with sigma_min/sigma_max between JAX's guard edge
+    (1e-10) and procrustes_align's ridge (1e-12): the kernel's iteration (its
+    model) gives the polar factor or I by whether it converges within the
+    cap, which is deterministic: W at 1e-10, I at 1e-12, and once it gives I
+    it does so for every smaller ratio.  The twin and JAX decide by the
+    smallest eigenvalue of O^T O, which here lies below its rounding (~1e-16
+    of the largest): each gives I or a finite matrix, which one is recorded
+    (``twin``, ``jax``), not asserted."""
+    from tpeps_torch.kernels.polar import MAX_STEPS, polar_unitary_twin
+
+    eye = np.eye(_K6)
+    O, X = _svd_overlap(np.logspace(0, np.log10(ratio), _K6), seed=19)
+    Wm, steps = _ns_polar_model(torch.from_numpy(O))
+    kept = not np.array_equal(Wm.numpy(), eye)
+    if kept:
+        assert np.abs(Wm.numpy() - X).max() <= 1e-13 / ratio
+    if ratio >= 1e-10:
+        assert kept and steps < MAX_STEPS
+    if ratio <= 1e-12:
+        assert not kept
+    smaller = np.logspace(np.log10(ratio), -12, 3)[1:]
+    if not kept:  # I here, I below
+        for r in smaller:
+            Os, _ = _svd_overlap(np.logspace(0, np.log10(r), _K6), seed=19)
+            np.testing.assert_array_equal(_ns_polar_model(torch.from_numpy(Os))[0].numpy(), eye)
+    outcome = {"model": "W" if kept else "I", "model_steps": steps}
+    for name, W in (("twin", polar_unitary_twin(torch.from_numpy(O)).numpy()),
+                    ("jax", _j_polar(O))):
+        assert np.isfinite(W).all()
+        outcome[name] = "I" if np.array_equal(W, eye) else "W"
+    record_property("polar_outcome", outcome)
+    print(f"sigma_min/sigma_max {ratio:.0e}: {outcome}")

@@ -57,11 +57,11 @@ _SIGNATURES = {
     "tpeps_t_epilogue_f64": (_vp, _vp, _vp, _i64, _i, _i, _vp),
     "tpeps_t_epilogue_f32": (_vp, _vp, _vp, _i64, _i, _i, _vp),
     "tpeps_t_epilogue_partials": (),
-    "tpeps_block_permute_f64": (_vp,) * 9 + (_i, _i, _i64, _vp),
-    "tpeps_block_permute_f32": (_vp,) * 9 + (_i, _i, _i64, _vp),
-    "tpeps_block_permute_max_rank": (),
-    "tpeps_block_gemm_f64": (_vp,) * 12 + (_i, _i, _i, _vp),
-    "tpeps_block_gemm_f32": (_vp,) * 12 + (_i, _i, _i, _vp),
+    "tpeps_block_permute_f64": (_vp,) * 7 + (_i, _i, _vp),
+    "tpeps_block_permute_f32": (_vp,) * 7 + (_i, _i, _vp),
+    "tpeps_block_sparse_limit": (_i,),
+    "tpeps_block_gemm_f64": (_vp,) * 17 + (_i, _i, _i, _i, _vp),
+    "tpeps_block_gemm_f32": (_vp,) * 17 + (_i, _i, _i, _i, _vp),
     "tpeps_frozen_commit_f64": (_vp,) * 11 + (_i64, _i64, _vp),
     "tpeps_frozen_commit_f32": (_vp,) * 11 + (_i64, _i64, _vp),
     "tpeps_frozen_commit_partials": (),

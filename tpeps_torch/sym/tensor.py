@@ -179,10 +179,9 @@ def _key_rows(keys, rank: int, nsym: int) -> np.ndarray:
 
 def _rows_to_keys(rows: np.ndarray, nsym: int) -> list:
     """Inverse of :func:`_key_rows` for rows (nb, rank, nsym)."""
-    lst = rows.tolist()
     if nsym == 1:
-        return [tuple(q[0] for q in r) for r in lst]
-    return [tuple(tuple(q) for q in r) for r in lst]
+        return list(map(tuple, rows[:, :, 0].tolist()))
+    return [tuple(map(tuple, r)) for r in rows.tolist()]
 
 
 class Struct:
@@ -192,14 +191,15 @@ class Struct:
     __slots__ = ("rank", "nsym", "keys", "shapes", "dims", "sizes", "offsets", "numel",
                  "_charges", "_index", "__weakref__")
 
-    def __init__(self, rank, nsym, keys, shapes):
+    def __init__(self, rank, nsym, keys, shapes, dims=None, charges=None):
         self.rank, self.nsym = rank, nsym
         self.keys, self.shapes = keys, shapes
-        self.dims = np.array(shapes, dtype=np.int64).reshape(len(keys), rank)
+        self.dims = (np.array(shapes, dtype=np.int64).reshape(len(keys), rank) if dims is None
+                     else dims)
         self.sizes = self.dims.prod(axis=1)
         self.offsets = (np.cumsum(self.sizes) - self.sizes).astype(np.int64)
         self.numel = int(self.sizes.sum())
-        self._charges = None
+        self._charges = charges
         self._index = None
 
     @property
@@ -226,11 +226,14 @@ def make_struct(rank: int, nsym: int, keys, shapes) -> Struct:
     return _interned(rank, nsym, keys, shapes)
 
 
-def _interned(rank, nsym, keys, shapes) -> Struct:
+def _interned(rank, nsym, keys, shapes, dims=None, charges=None) -> Struct:
+    """The one structure of ``(rank, nsym, keys, shapes)``; ``dims`` and
+    ``charges``, where given, are those keys and shapes as the arrays a new
+    structure would build from them."""
     ident = (rank, nsym, keys, shapes)
     s = _STRUCTS.get(ident)
     if s is None:
-        s = Struct(rank, nsym, keys, shapes)
+        s = Struct(rank, nsym, keys, shapes, dims, charges)
         _STRUCTS[ident] = s
     return s
 
@@ -238,8 +241,10 @@ def _interned(rank, nsym, keys, shapes) -> Struct:
 def _struct_from_rows(rows: np.ndarray, dims: np.ndarray, nsym: int) -> Struct:
     """Structure from charge rows (nb, rank, nsym) already in sorted order."""
     rank = rows.shape[1]
+    rows = np.array(rows, dtype=np.int64, order="C").reshape(len(rows), rank, nsym)
+    dims = np.array(dims, dtype=np.int64, order="C").reshape(len(rows), rank)
     return _interned(rank, nsym, tuple(_rows_to_keys(rows, nsym)),
-                     tuple(tuple(r) for r in dims.tolist()))
+                     tuple(map(tuple, dims.tolist())), dims, rows)
 
 
 def _unique_rows(rows: np.ndarray):
@@ -402,7 +407,11 @@ def _dot_plan(sa: Struct, sb: Struct, ax_a, ax_b, signs=None, out_ref: Struct | 
             urows, pout = _unique_rows(rows.reshape(len(pa), -1))
             urows = urows.reshape(-1, nkeep, sa.nsym)
         # pairs grouped by output, in a's then b's block order within each
-        order = np.lexsort((pb, pa, pout))
+        # (one int64 key where it fits: a 3-key lexsort is ~3x slower)
+        if float(max(len(urows), 1)) * max(nA, 1) * max(nB, 1) < 2.0 ** 62:
+            order = np.argsort((pout * nA + pa) * nB + pb, kind="stable")
+        else:
+            order = np.lexsort((pb, pa, pout))
         pa, pb, pout = pa[order], pb[order], pout[order]
         nout = len(urows)
         first = np.searchsorted(pout, np.arange(nout))
