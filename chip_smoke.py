@@ -6,9 +6,10 @@ with one CUDA card and ``nvcc`` (CUDA_HOME, PATH or the toolkit's default
 prefix).  It needs no network and no JAX.  ``python3 chip_smoke.py --ablate
 [--parent DIR] [--only PARTS]`` runs phases 0 and 1 and then only
 :func:`ablate`, the timing breakdown of K1's fused double layer, K2's
-corner apply, K3's Gram and solves, K6's polar factor and its VJP, K7's
-``ozaki_gemm`` and ``eigh_small`` (with a parent checkout: its kernels, its
-cold start and its graphed move beside these).
+corner apply, K3's Gram and solves, K4's epilogue, K6's polar factor and
+its VJP, K7's ``ozaki_split`` and ``ozaki_gemm``, K8 and ``eigh_small``
+(with a parent checkout: its kernels, its cold start, its graphed move and
+its Ozaki move beside these).
 
 Phases (any failed check exits non-zero; there is no CPU fallback):
 
@@ -41,7 +42,11 @@ Phases (any failed check exits non-zero; there is no CPU fallback):
    CholeskyQR2's first pass on M2 P, on the cold start (k = chi) and on a
    graded basis of cond 1e7 (:func:`solve_checks`: kernel and twin each to
    a normwise backward error <= 1e-14 in float64, 1e-6 in float32, the
-   kernel to the twin in forward error <= 2 k u cond(L)).
+   kernel to the twin in forward error <= 2 k u cond(L)).  K4's
+   ``t_epilogue`` (:func:`epilogue_checks`) at m = 147, 155, 169, 17 and
+   200 (its second pass), batch 1 and 49, f64 and f32: the max normalisation bit-identical to the
+   twin, the 2-norm within 1e-12 (f64) or 1e-5 (f32) relative, two calls
+   and a CUDA graph's replay bit-identical; timed in graphs.
 3. the forward slice: the D=7, chi=147 float64 state of the benchmark case
    (RandomState(0), C4v-symmetrized), init_env("CTMRG"), run_ctmrg
    (max_iter=48, conv_tol=1e-8, n_power=2), energy_1x1_lowmem (j2=0.3)
@@ -73,7 +78,8 @@ Phases (any failed check exits non-zero; there is no CPU fallback):
    replays alone; (b) ``run_ctmrg(moves_per_sync=4)`` against the same; (c)
    one float64 move with ``dot_impl="ozaki"`` against the FP64 move from the
    same start (spectrum <= 1e-11, C and T <= 1e-10), and its ``ozaki_gemm``
-   launches by shape; (d) ``MoveGraph``
+   launches by shape and ``ozaki_split`` launches by (axis, rows, k), which
+   must be phase 2's split shapes; (d) ``MoveGraph``
    refuses chi=170, past the move's kernels on the card; (e)
    ``run_ctmrg_mixed`` with the JAX package's ``bench_case`` arguments
    (max_iter 48, conv_tol 1e-8, moves_per_sync 4, physical-index slicing
@@ -162,9 +168,18 @@ its shapes: ``eigh_small`` on the Rayleigh-Ritz H of moves 4 and 31 of the
 D=7 path, at subspace_eigh's width (155), on a dense 64 (the D=2 SYMEIG
 shape), on an H with exactly degenerate pairs and on a dense random matrix
 of its largest k, 169 (converged, eigenvalues <= 1e-12 relative, residual
-and orthogonality <= 1e-12, two calls bit-identical), ``ozaki_split`` on
-the corner M2 (7203 x 7203), a basis P (7203 x 147) and a layer's operands
-(98 x 49, 49 x 1.06M) (digit planes and exponents bit-identical),
+and orthogonality <= 1e-12, two calls bit-identical), ``ozaki_split``
+(:func:`split_checks`) at every split shape of the Ozaki move
+(:data:`SPLIT_SHAPES`: M2's rows, P^T's, T's, C's and a layer's A; the
+columns of C T's and T P's B, of a layer's B, of P and of Z) and on a
+layer's ket A (digit planes with their padding and exponents bit-identical
+to the twin, two calls bit-identical, and in a CUDA graph; each shape timed
+in graphs beside its bound), on rows and columns of mixed exponents at k =
+1, 31, 33, 147 and 7203 with a zero row, a row of subnormals below 2^-1024
+and one of subnormals in [2^-1023, 2^-1022) at s = 8, 6, 2 (w = 7) and w =
+5 (the table-driven instance), past one block's staging (k = 30000 rows,
+k = 20000 and 8281 columns), and with a NaN row and an infinite row
+(exponents as the twin's, those rows of the product non-finite),
 ``ozaki_gemm`` bit-identical to its twin (``torch.equal``) at every product
 shape of the Ozaki move (M2 P; C T, 147 x 147 by 147 x 7203; T (C T) and T P,
 7203 x 147 by 147 x 7203; the sliced layer, 49 x 49 by 49 x 1.06M; P^T Z, 147
@@ -1003,6 +1018,7 @@ def phase2(dev) -> dict:
             del M2b, q1, X6
     for name, shapes in gram_shapes.items():
         rec[name]["shapes"] = shapes
+    rec["t_epilogue"].update(epilogue_checks(torch.Generator(device=dev).manual_seed(4), dev))
     return rec
 
 
@@ -1288,6 +1304,181 @@ def oz_shape(A, B, s: int = 8) -> dict:
             "bound_ms": bound_ms, "bound_by": bound_by, "fp64_bound_ms": fp64_ms}
 
 
+def same_float(x, y) -> bool:
+    """Bit for bit alike, NaN where NaN (its payload aside)."""
+    nx, ny = torch.isnan(x), torch.isnan(y)
+    return torch.equal(nx, ny) and torch.equal(x.masked_fill(nx, 0.0), y.masked_fill(ny, 0.0))
+
+
+def in_graph(fn):
+    """``fn()``'s outputs from one replay of a CUDA graph that captured it
+    (after one eager call), cloned."""
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out = fn()
+    g.replay()
+    torch.cuda.synchronize()
+    out = tuple(t.clone() for t in (out if isinstance(out, tuple) else (out,)))
+    del g
+    return out
+
+
+def mixed_exponents(shape, gen, dev):
+    """float64 entries of both signs whose exponents run over 2^-60 .. 2^60,
+    with exact powers of two, zeros, -0.0 and subnormals sprinkled in."""
+    u = lambda: torch.rand(shape, generator=gen, device=dev, dtype=torch.float64)
+    x = (0.5 + 0.5 * u()) * torch.exp2(torch.randint(-60, 61, shape, generator=gen, device=dev)
+                                      .double())
+    x = torch.where(u() < 0.5, -x, x)
+    x = torch.where(u() < 0.05, torch.exp2(torch.randint(-40, 41, shape, generator=gen, device=dev)
+                                           .double()), x)
+    x = torch.where(u() < 0.05, torch.full_like(x, 5e-324) * torch.randint(
+        1, 1000, shape, generator=gen, device=dev).double(), x)
+    x = torch.where(u() < 0.05, torch.zeros_like(x), x)
+    return torch.where(u() < 0.05, torch.full_like(x, -0.0), x)
+
+
+def split_case(label, X, axis, s=8, w=7, graph=False) -> tuple:
+    """``ozaki_split`` against its twin (planes with their padding, and e),
+    two calls bit-identical, and in a CUDA graph where ``graph``."""
+    from tpeps_torch.kernels import ozaki
+
+    X = X.contiguous()
+    P1, e1 = ozaki.ozaki_split(X, s, w, axis)
+    P2, e2 = ozaki.ozaki_split(X, s, w, axis)
+    Pt, et = ozaki.ozaki_split_twin(X, s, w, axis)
+    ok = torch.equal(P1, Pt) and same_float(e1, et) and torch.equal(P1, P2) and same_float(e1, e2)
+    if graph:
+        Pg, eg = in_graph(lambda: ozaki.ozaki_split(X, s, w, axis))
+        ok = ok and torch.equal(Pg, Pt) and same_float(eg, et)
+    check(ok, f"ozaki_split {label} {tuple(X.shape)} axis={axis} s={s} w={w}: planes (padding "
+              f"included) and e bit-identical to the twin, two calls bit-identical"
+              + (", and in a CUDA graph" if graph else ""))
+    return P1, e1
+
+
+# the split shapes of the Ozaki move (slice_phys, as run_ctmrg_mixed's
+# float64 phase runs it): label -> (axis, rows, k, launches per Ozaki move)
+SPLIT_SHAPES = {"M2 rows": (1, CHI * D * D, CHI * D * D, 1),
+                "P^T rows": (1, CHI, CHI * D * D, 1),
+                "T rows": (1, CHI * D * D, CHI, 2),
+                "C rows": (1, CHI, CHI, 1),
+                "layer A rows": (1, D * D, D * D, 8),
+                "C T, T P columns": (0, CHI * D * D, CHI, 3),
+                "layer B columns": (0, D * D * CHI * CHI, D * D, 8),
+                "P columns": (0, CHI, CHI * D * D, 3),
+                "Z columns": (0, CHI * D * D, CHI * D * D, 1)}
+# the targets of the three large splits (ms in CUDA graphs)
+SPLIT_TARGET_MS = {"M2 rows": 0.35, "layer B columns": 0.40, "Z columns": 0.35}
+
+
+def split_bound(axis, rows, k, s=8):
+    """The split's least time: X read once, its planes and e written once."""
+    return bound(8 * rows * k + s * rows * -(-k // 32) * 32 + 8 * rows, 0, FP64_CC)
+
+
+def split_checks(ops, gen, dev) -> dict:
+    """``ozaki_split`` bit-identical to its twin at every split shape of the
+    Ozaki move (real operands of the D=7 path: ``ops[label]``), eagerly and
+    in a CUDA graph, each timed in graphs beside its bound; then odd k and k
+    < 32, s = 8, 6, 2 and w = 5 (the table-driven instance), a zero row, rows
+    of subnormals (max below 2^-1024, and in [2^-1024, 2^-1022)), k past one
+    block's staging (rows and columns read twice, columns in clusters of
+    more than 8), a row with an infinity and a row with a NaN, whose e is the
+    twin's and whose row of the product is non-finite."""
+    from tpeps_torch.kernels import ozaki
+
+    shapes = {}
+    for label, (axis, rows, k, per_move) in SPLIT_SHAPES.items():
+        X = ops[label].contiguous()
+        check(tuple(X.shape) == ((rows, k) if axis == 1 else (k, rows)),
+              f"split operand {label}: shape {tuple(X.shape)}")
+        split_case(label, X, axis, graph=True)
+        ms = graph_ms(lambda: ozaki.ozaki_split(X, 8, 7, axis), reps=5, replays=4)
+        bound_ms, _ = split_bound(axis, rows, k)
+        shapes[label] = {"axis": axis, "rows": rows, "k": k, "graph_ms": ms, "bound_ms": bound_ms,
+                         "launches_per_ozaki_move": per_move}
+        target = SPLIT_TARGET_MS.get(label)
+        print(f"  ozaki_split {label} (rows {rows}, k {k}): {ms:.4f} ms in CUDA graphs, bound "
+              f"{bound_ms:.4f} ms" + (f", target <= {target} ms" if target else ""), flush=True)
+        del X
+    for m, k in ((5, 1), (7, 31), (6, 33), (9, 147), (4, 7203)):
+        X = mixed_exponents((m, k), gen, dev)
+        X[1] = 0.0
+        X[2] = torch.linspace(1.0, 1000.0, k, device=dev, dtype=torch.float64) * 5e-324  # < 2^-1064
+        X[3] = torch.linspace(0.5, 1.0, k, device=dev, dtype=torch.float64) * 2.0**-1022  # subnormal
+        for s, w in ((8, 7), (6, 7), (2, 7), (8, 5)):
+            split_case(f"mixed exponents, odd k", X, 1, s, w, graph=(s, w) == (8, 5))
+            split_case(f"mixed exponents, odd k", X.mT.contiguous(), 0, s, w, graph=(s, w) == (8, 5))
+    # k past one block's staging: rows read twice (k = 30000), columns in
+    # clusters of more than 8 (k = 8281, chi = 169's Z) and read twice
+    for label, shape, axis in (("rows read twice", (3, 30000), 1),
+                               ("columns in clusters of 9", (8281, 20), 0),
+                               ("columns read twice", (20000, 5), 0)):
+        X = mixed_exponents(shape, gen, dev)
+        for s, w in ((8, 7), (6, 5)):
+            split_case(label, X, axis, s, w)
+    # a NaN row and an infinite row: e as the twin's, the planes zero, and
+    # the product's rows non-finite
+    A = mixed_exponents((6, 147), gen, dev)
+    A[2, 5] = float("nan")
+    A[4, 0] = float("inf")
+    B = torch.randn(147, 9, generator=gen, device=dev, dtype=torch.float64)
+    for s, w in ((8, 7), (8, 5)):
+        Ap, ea = split_case("with a NaN and an infinity", A, 1, s, w)
+        split_case("with a NaN and an infinity", A.mT.contiguous(), 0, s, w)
+        Bp, eb = ozaki.ozaki_split(B, s, w, 0)
+        C = ozaki.ozaki_gemm(Ap, ea, Bp, eb, w)
+        fin = torch.isfinite(C)
+        check(not fin[2].any() and not fin[4].any() and bool(fin[[0, 1, 3, 5]].all())
+              and same_float(C, ozaki.ozaki_gemm_twin(Ap, ea, Bp, eb, w)),
+              f"ozaki_gemm s={s} w={w} after a split with a NaN row and an infinite row: those "
+              "rows non-finite, the others finite, bit-identical to the twin")
+    return shapes
+
+
+def epilogue_checks(gen, dev) -> dict:
+    """``t_epilogue`` against its twin at m = 147, 155, 169 and 17 (below
+    one tile), batch 1 and 49, and at m = 200 (more tile pairs than the grid
+    keeps in registers: the second pass over ``out``), f64 and f32, both
+    normalisations: the max
+    bit-identical ("inf"), the 2-norm within TOL relative; two calls and a
+    CUDA graph's replay bit-identical to the eager call.  Returns the
+    move-shape times in CUDA graphs beside the twin's."""
+    from tpeps_torch.kernels import epilogue
+
+    times = {}
+    for dtype in (torch.float64, torch.float32):
+        tag = str(dtype).replace("torch.", "")
+        for m in (CHI, CHI + 8, EIGH_BIG, 17, 200):
+            for batch in (1, D * D):
+                x = torch.randn(batch, m, m, generator=gen, device=dev, dtype=dtype)
+                x = x.view(*((D, D) if batch > 1 else (1,)), m, m)
+                for norm in ("inf", "fro"):
+                    y1 = epilogue.t_epilogue(x, norm)
+                    y2 = epilogue.t_epilogue(x, norm)
+                    (yg,) = in_graph(lambda: epilogue.t_epilogue(x, norm))
+                    yt = epilogue.t_epilogue_twin(x, norm)
+                    e = 0.0 if torch.equal(y1, yt) else rel_err(y1, yt)
+                    ok = e == 0.0 if norm == "inf" else e <= TOL[dtype]
+                    check(ok and torch.equal(y1, y2) and torch.equal(y1, yg),
+                          f"t_epilogue {tag} m={m} batch={batch} norm={norm}: rel err {e:.1e} "
+                          + ("(bit-identical)" if norm == "inf" else f"<= {TOL[dtype]:.0e}")
+                          + ", two calls and a graph's replay bit-identical")
+                    if m == CHI and batch > 1 and norm == "inf":
+                        ms = graph_ms(lambda: epilogue.t_epilogue(x, norm))
+                        twin_ms = graph_ms(lambda: epilogue.t_epilogue_twin(x, norm))
+                        times[f"graph_ms_{tag}"], times[f"twin_graph_ms_{tag}"] = ms, twin_ms
+                        print(f"  t_epilogue {tag} {tuple(x.shape)} in CUDA graphs: kernel "
+                              f"{ms:.4f} ms, twin {twin_ms:.4f} ms, bound "
+                              f"{bound(2 * nbytes(x), 0, FP64_CC)[0]:.4f} ms"
+                              + (", target <= 0.012 ms" if dtype == torch.float64 else ""),
+                              flush=True)
+    return times
+
+
 def phase2_large_d(dev) -> dict:
     """The large-D slice's kernels against their twins at D=7, chi=147 f64."""
     print(f"== phase 2 (large-D slice): eigh_small, ozaki_split, ozaki_gemm, ctm_commit at "
@@ -1358,32 +1549,6 @@ def phase2_large_d(dev) -> dict:
                                         dtype=torch.float64)).Q.contiguous()
         n, k = P.shape
         s = 8
-        split = {}
-        for label, X, axis in (("M2", M2, 1), ("P", P, 0)):
-            Xp, ex = ozaki.ozaki_split(X, s, 7, axis)
-            Xpt, ext = ozaki.ozaki_split_twin(X, s, 7, axis)
-            check(torch.equal(Xp, Xpt) and torch.equal(ex, ext),
-                  f"ozaki_split {label} {tuple(X.shape)} axis={axis}: digit planes "
-                  f"{tuple(Xp.shape)} and exponents bit-identical to the twin")
-            split[label] = (Xp, ex)
-        (Ap, ea), (Bp, eb) = split["M2"], split["P"]
-        time_case(rec, "ozaki_split", lambda: ozaki.ozaki_split(M2, s, 7, 1),
-                  lambda: ozaki.ozaki_split_twin(M2, s, 7, 1), None,
-                  nbytes(M2) + s * Ap.shape[1] * Ap.shape[2] + 8 * n, 0, FP64_CC)
-        print("  ozaki_split bound: read M2 once, write its 8 digit planes")
-        Y = ozaki.ozaki_gemm(Ap, ea, Bp, eb)
-        check(torch.equal(Y, ozaki.ozaki_gemm_twin(Ap, ea, Bp, eb, 7)),
-              f"ozaki_gemm M2 P (s={s}): bit-identical to the twin; "
-              f"{rel_err(Y, M2 @ P):.2e} vs the FP64 product")
-        time_case(rec, "ozaki_gemm", lambda: ozaki.ozaki_gemm(Ap, ea, Bp, eb),
-                  lambda: ozaki.ozaki_gemm_twin(Ap, ea, Bp, eb, 7), lambda: torch.matmul(M2, P),
-                  nbytes(Ap, Bp, ea, eb, Y), s * (s + 1) // 2 * 2 * n * n * k, INT8_TC)
-        del Ap, Y, split
-        # every other product shape of the Ozaki move (slice_phys, as
-        # run_ctmrg_mixed's float64 phase runs it) and the unsliced layers, real
-        # operands of the D=7 path: bit-identical to the twin, timed against
-        # FP64 torch.matmul, each with its bound
-        rec["ozaki_gemm"]["shapes"] = {"M2 P": oz_shape(M2, P, s)}
         Tm = T_int.permute(0, 1, 3, 2).reshape(D * D * CHI, CHI)
         ct = env.C @ T_int.permute(3, 0, 1, 2).reshape(CHI, D * D * CHI)
         q1 = Tm @ ct
@@ -1392,17 +1557,34 @@ def phase2_large_d(dev) -> dict:
         B_l = B_l.contiguous()
         A_s = a[0].permute(2, 3, 0, 1).reshape(D * D, D * D).contiguous()
         A_b = a.conj().permute(3, 4, 0, 1, 2).reshape(D * D, 2 * D * D).contiguous()
-        split = {}
-        for label, X, axis in (("ket A", A_k, 1), ("layer B", B_l, 0)):
-            Xp, ex = ozaki.ozaki_split(X, s, 7, axis)
-            Xpt, ext = ozaki.ozaki_split_twin(X, s, 7, axis)
-            same = torch.equal(Xp, Xpt) and torch.equal(ex, ext)
-            del Xp, ex, Xpt, ext
-            check(same, f"ozaki_split layer {label} {tuple(X.shape)} axis={axis}: digit planes "
-                        f"and exponents bit-identical to the twin")
-        rec["ozaki_split"]["ms_layer_shape"] = cuda_ms(lambda: ozaki.ozaki_split(B_l, s, 7, 0))
-        print(f"  ozaki_split of the layer's B {tuple(B_l.shape)}: "
-              f"{rec['ozaki_split']['ms_layer_shape']:.3f} ms")
+        # every split shape of the Ozaki move on an operand of the D=7 path (M2
+        # stands in for Z, which has its shape), then the edge cases
+        split_ops = {"M2 rows": M2, "P^T rows": P.mT, "T rows": Tm, "C rows": env.C,
+                     "layer A rows": A_s, "C T, T P columns": T_int.permute(3, 0, 1, 2).reshape(
+                         CHI, -1), "layer B columns": B_l, "P columns": P, "Z columns": M2}
+        split_shapes = split_checks(split_ops, gen, dev)
+        del split_ops
+        Ap, ea = ozaki.ozaki_split(M2, s, 7, 1)
+        Bp, eb = ozaki.ozaki_split(P, s, 7, 0)
+        time_case(rec, "ozaki_split", lambda: ozaki.ozaki_split(M2, s, 7, 1),
+                  lambda: ozaki.ozaki_split_twin(M2, s, 7, 1), None,
+                  nbytes(M2) + s * Ap.shape[1] * Ap.shape[2] + 8 * n, 0, FP64_CC)
+        print("  ozaki_split bound: read M2 once, write its 8 digit planes")
+        rec["ozaki_split"]["shapes"] = split_shapes
+        Y = ozaki.ozaki_gemm(Ap, ea, Bp, eb)
+        check(torch.equal(Y, ozaki.ozaki_gemm_twin(Ap, ea, Bp, eb, 7)),
+              f"ozaki_gemm M2 P (s={s}): bit-identical to the twin; "
+              f"{rel_err(Y, M2 @ P):.2e} vs the FP64 product")
+        time_case(rec, "ozaki_gemm", lambda: ozaki.ozaki_gemm(Ap, ea, Bp, eb),
+                  lambda: ozaki.ozaki_gemm_twin(Ap, ea, Bp, eb, 7), lambda: torch.matmul(M2, P),
+                  nbytes(Ap, Bp, ea, eb, Y), s * (s + 1) // 2 * 2 * n * n * k, INT8_TC)
+        del Ap, Bp, Y
+        # every other product shape of the Ozaki move (slice_phys, as
+        # run_ctmrg_mixed's float64 phase runs it) and the unsliced layers, real
+        # operands of the D=7 path: bit-identical to the twin, timed against
+        # FP64 torch.matmul, each with its bound
+        rec["ozaki_gemm"]["shapes"] = {"M2 P": oz_shape(M2, P, s)}
+        split_case("layer ket A", A_k, 1)
         shapes = rec["ozaki_gemm"]["shapes"]
         shapes["ct"] = oz_shape(env.C, T_int.permute(3, 0, 1, 2).reshape(CHI, -1), s)
         shapes["q1, z1"] = oz_shape(Tm, ct, s)
@@ -1524,6 +1706,7 @@ def phase7(dev) -> tuple:
     P0 = mf.cold_start_basis(CHI * D * D, CHI, a.dtype, dev)
     moves = {}
     ozaki.SHAPE_LAUNCHES.clear()
+    ozaki.SPLIT_LAUNCHES.clear()
     for impl in ("xla", "ozaki"):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1534,6 +1717,11 @@ def phase7(dev) -> tuple:
               "(first call)")
     shape_launches = dict(ozaki.SHAPE_LAUNCHES)
     print(f"  ozaki_gemm launches of the Ozaki move by (s, m, kp, n): {shape_launches}")
+    split_launches = dict(ozaki.SPLIT_LAUNCHES)
+    print(f"  ozaki_split launches of the Ozaki move by (axis, rows, k): {split_launches}")
+    expected = {(ax, rows, k): n for ax, rows, k, n in SPLIT_SHAPES.values()}
+    check(split_launches == expected, f"the Ozaki move's splits are phase 2's shapes: "
+                                      f"{split_launches} == {expected}")
     (Cx, Tx, sx, _), (Co, To, so, _) = moves["xla"], moves["ozaki"]
     e_s, e_C, e_T = (float((x - y).abs().max()) for x, y in ((sx, so), (Cx, Co), (Tx, To)))
     check(e_s <= OZ_MOVE_SPEC_TOL and max(e_C, e_T) <= OZ_MOVE_ENV_TOL,
@@ -2968,7 +3156,9 @@ ABLATIONS = {"cholqr.cu": {0: "whole", 1: "no loads", 2: "no MMAs", 3: "no loads
                            4: "no k loop", 8: "no panel updates", 16: "no substitutions",
                            24: "no panel updates, no substitutions",
                            56: "no panel updates, no substitutions, no tile loads or stores"},
-             "ozaki.cu": {0: "whole", 2: "no wgmmas", 8: "no recombination", 16: "no stores"},
+             "ozaki.cu": {0: "whole", 2: "no wgmmas", 8: "no recombination", 16: "no stores",
+                          32: "no plane stores", 64: "no digit pass"},
+             "t_epilogue.cu": {0: "whole"},
              "eigh_small.cu": {0: "whole", 64: "whole, every sweep", 65: "no subproblems",
                                66: "no H updates", 68: "no V updates",
                                71: "no subproblems, no H or V updates",
@@ -2994,15 +3184,17 @@ ABLATIONS = {"cholqr.cu": {0: "whole", 1: "no loads", 2: "no MMAs", 3: "no loads
 ABLATE_KERNELS = ("gram_kernel", "ozaki_gemm_kernel", "trsm_kernel", "block_jacobi",
                   "double_layer_kernel", "corner_dmma_kernel", "layer_dmma_kernel",
                   "dmma_gemm_kernel", "polar_kernel", "polar_vjp_kernel", "block_gemm_kernel",
-                  "block_permute_kernel")
+                  "block_permute_kernel", "split_rows", "split_cols", "t_epilogue_kernel")
 # the parts of ablate(): the sources each builds, and those of the parent it needs
 ABLATE_GROUPS = {"gram": ("cholqr.cu",), "ozaki": ("ozaki.cu",), "solves": ("cholqr.cu",),
                  "eigh": ("eigh_small.cu",), "fused": ("double_layer.cu", "corner_apply.cu"),
-                 "polar": ("polar.cu",), "k8": ("block_sparse.cu",)}
+                 "polar": ("polar.cu",), "k8": ("block_sparse.cu",), "split": ("ozaki.cu",),
+                 "epilogue": ("t_epilogue.cu",)}
 # the parent's sources each part times, and the sources linked with each
 # (the parent's polar.cu calls the Gram of its cholqr.cu)
 ABLATE_PARENT = {"solves": ("cholqr.cu",), "fused": ("layer_contract.cu", "corner_apply.cu"),
-                 "polar": ("polar.cu",), "k8": ("block_sparse.cu",)}
+                 "polar": ("polar.cu",), "k8": ("block_sparse.cu",), "split": ("ozaki.cu",),
+                 "epilogue": ("t_epilogue.cu",)}
 PARENT_LINKED = {"polar.cu": ("cholqr.cu",)}
 
 
@@ -3053,10 +3245,16 @@ def ablate(parent=None, only=None) -> dict:
     K8 (:func:`ablate_k8`, ``k8``): with ``parent``, its
     ``block_sparse.cu`` beside this one, and the frozen move, the cached
     dynamic move, one adjoint iteration and host planning in each checkout
-    (:func:`k8_move_compare`).
+    (:func:`k8_move_compare`).  K7's ``ozaki_split`` (:func:`ablate_split`,
+    ``split``) at every split shape of the Ozaki move, with ``parent`` its
+    ``ozaki.cu`` beside this one and the Ozaki move, the graphed Ozaki move
+    and ``run_ctmrg_mixed``'s float64 phase in each checkout
+    (:func:`oz_move_compare`); K4's ``t_epilogue``
+    (:func:`ablate_epilogue`, ``epilogue``) at the move's shape in f64 and
+    f32, with ``parent`` its ``t_epilogue.cu`` and :func:`move_compare`.
     ``only`` names the parts to run (:data:`ABLATE_GROUPS`).  Run by
     ``chip_smoke.py --ablate [--parent DIR]
-    [--only gram,ozaki,solves,eigh,fused,polar,k8]``."""
+    [--only gram,ozaki,solves,eigh,fused,polar,k8,split,epilogue]``."""
     from tpeps_torch.kernels import build as kb
 
     groups = tuple(ABLATE_GROUPS) if only is None else tuple(only)
@@ -3116,13 +3314,19 @@ def ablate(parent=None, only=None) -> dict:
         return torch.cuda.current_stream(dev).cuda_stream
 
     rec = {}
+    if "split" in groups:
+        rec.update(ablate_split(libs, in_turns, stream, dev, parent is not None))
+        if parent is not None:
+            rec["ozaki_moves"] = oz_move_compare(parent)
+    if "epilogue" in groups:
+        rec.update(ablate_epilogue(libs, in_turns, stream, dev, parent))
     if "k8" in groups:
         rec.update(ablate_k8(libs, in_turns, stream, dev, parent is not None))
         if parent is not None:
             rec["k8_moves"] = k8_move_compare(parent)
     if "polar" in groups:
         rec.update(ablate_polar(libs, in_turns, stream, dev, parent is not None))
-    if parent is not None and {"fused", "polar"} & set(groups):
+    if parent is not None and {"fused", "polar", "epilogue"} & set(groups):
         rec["move"] = move_compare(parent)
     if "fused" in groups:
         rec.update(ablate_fused(libs, in_turns, stream, dev, parent is not None))
@@ -3184,7 +3388,7 @@ def ablate_ozaki(libs, in_turns, stream, dev) -> dict:
         Yp, ey = ozaki.ozaki_split(Y, 8, 7, 0)
         C = torch.empty(m, nn, dtype=torch.float64, device=dev)
         calls = {}
-        for bits in ABLATIONS["ozaki.cu"]:
+        for bits in (0, 2, 8, 16):
             def call(lib=libs["ozaki.cu", bits]):
                 err = lib.tpeps_ozaki_gemm(Xp.data_ptr(), ex.data_ptr(), Yp.data_ptr(),
                                            ey.data_ptr(), C.data_ptr(), m, nn, Xp.shape[2], 8, 7,
@@ -3198,6 +3402,180 @@ def ablate_ozaki(libs, in_turns, stream, dev) -> dict:
               + ", ".join(f"{v} {t:.3f} ms" for v, t in ms.items()), flush=True)
         del X, Y, Xp, Yp, C
     return rec
+
+
+def ablate_split(libs, in_turns, stream, dev, with_parent) -> dict:
+    """:func:`ablate`'s part for K7's ``ozaki_split``: every split shape of the
+    Ozaki move (:data:`SPLIT_SHAPES`) on seeded operands, the whole kernel,
+    its copies without the plane stores (32) and without the digit pass (64),
+    and the parent's kernel
+    first and last in the turns ``with_parent``, in CUDA graphs, beside the
+    bound and the target."""
+    from tpeps_torch.kernels.ozaki import padded_k
+
+    gen = torch.Generator(device=dev).manual_seed(6)
+    rec = {}
+    for label, (axis, rows, k, per_move) in SPLIT_SHAPES.items():
+        X = torch.randn(*((rows, k) if axis == 1 else (k, rows)), generator=gen, device=dev,
+                        dtype=torch.float64)
+        kp = padded_k(k)
+        planes = torch.empty(8, rows, kp, dtype=torch.int8, device=dev)
+        e = torch.empty(rows, dtype=torch.float64, device=dev)
+        calls = {}
+        for bits in (("parent",) if with_parent else ()) + (0, 32, 64):
+            def call(lib=libs["ozaki.cu", bits]):
+                err = lib.tpeps_ozaki_split(X.data_ptr(), planes.data_ptr(), e.data_ptr(), rows, k,
+                                            kp, 8, 7, axis, stream())
+                if err:
+                    fail(f"ozaki_split {label} launch: CUDA error {err}")
+            calls[ABLATIONS["ozaki.cu"].get(bits, bits)] = call
+        ms = in_turns(calls, 5, 4)
+        bound_ms, _ = split_bound(axis, rows, k)
+        rec[f"ozaki_split {label}"] = {"axis": axis, "rows": rows, "k": k, "ms": ms,
+                                       "bound_ms": bound_ms, "target_ms": SPLIT_TARGET_MS.get(label),
+                                       "launches_per_ozaki_move": per_move}
+        print(f"  ozaki_split {label} (axis {axis}, rows {rows}, k {k}; {per_move} per Ozaki "
+              f"move): " + ", ".join(f"{v} {t:.4f} ms" for v, t in ms.items())
+              + f"; bound {bound_ms:.4f} ms"
+              + (f", target <= {SPLIT_TARGET_MS[label]} ms" if label in SPLIT_TARGET_MS else ""),
+              flush=True)
+        del X, planes, e
+    return rec
+
+
+# a parent's t_epilogue entries from before the grid barrier's counters
+PARENT_EPILOGUE_ARGS = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+                        ctypes.c_int, ctypes.c_int, ctypes.c_void_p)
+
+
+def ablate_epilogue(libs, in_turns, stream, dev, parent) -> dict:
+    """:func:`ablate`'s part for K4's ``t_epilogue`` at the move's shape (D^2
+    x chi x chi), f64 and f32, both normalisations, beside the twin, and the
+    kernel of the checkout ``parent`` (if not None) first and last in the
+    turns, called with the arguments its own source declares."""
+    from tpeps_torch.kernels import barrier_counters, epilogue
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+    bar = barrier_counters(dev)
+    parent_bar = parent is not None and "unsigned* bar" in (
+        Path(parent) / "tpeps_torch" / "csrc" / "t_epilogue.cu").read_text()
+    rec = {}
+    for dtype in (torch.float64, torch.float32):
+        sfx = "f64" if dtype == torch.float64 else "f32"
+        x = torch.randn(D, D, CHI, CHI, generator=gen, device=dev, dtype=dtype)
+        out = torch.empty_like(x)
+        part = torch.empty(1024, dtype=dtype, device=dev)  # >= either kernel's partials
+        for mode, norm in ((0, "inf"), (1, "fro")):
+            calls = {}
+            if parent is not None:
+                pfn = getattr(libs["t_epilogue.cu", "parent"], f"tpeps_t_epilogue_{sfx}")
+                if not parent_bar:
+                    pfn.argtypes = PARENT_EPILOGUE_ARGS
+                pargs = (bar.data_ptr(),) if parent_bar else ()
+
+                def parent_call(fn=pfn, mode=mode, pargs=pargs):
+                    err = fn(x.data_ptr(), out.data_ptr(), part.data_ptr(), *pargs, D * D, CHI,
+                             mode, stream())
+                    if err:
+                        fail(f"parent t_epilogue launch: CUDA error {err}")
+                # the parent's call must really write its result
+                out.fill_(float("nan"))
+                parent_call()
+                tol = 1e-12 if dtype == torch.float64 else 1e-5
+                check(torch.allclose(out, epilogue.t_epilogue_twin(x, norm), rtol=tol, atol=tol),
+                      f"parent t_epilogue {sfx} {norm} wrote the twin's result")
+                calls["parent"] = parent_call
+            fn = getattr(libs["t_epilogue.cu", 0], f"tpeps_t_epilogue_{sfx}")
+
+            def call(fn=fn, mode=mode):
+                err = fn(x.data_ptr(), out.data_ptr(), part.data_ptr(), bar.data_ptr(), D * D, CHI,
+                         mode, stream())
+                if err:
+                    fail(f"t_epilogue launch: CUDA error {err}")
+            calls["whole"] = call
+            calls["twin"] = lambda norm=norm: epilogue.t_epilogue_twin(x, norm)
+            ms = in_turns(calls, 20, 5)
+            bound_ms, _ = bound(2 * nbytes(x), 0, FP64_CC)
+            rec[f"t_epilogue {sfx} {norm}"] = {"ms": ms, "bound_ms": bound_ms}
+            print(f"  t_epilogue {sfx} {norm} {tuple(x.shape)}: "
+                  + ", ".join(f"{v} {t * 1000:.2f} us" for v, t in ms.items())
+                  + f"; bound {bound_ms * 1000:.2f} us"
+                  + (", target <= 12 us" if sfx == "f64" else ""), flush=True)
+    return rec
+
+
+OZ_MOVE_CODE = r"""
+import json, time, numpy as np, torch
+from tpeps_torch.ctm.c4v import move_factored as mf
+from tpeps_torch.ctm.c4v.env import init_env
+from tpeps_torch.ctm.c4v.move_graph import CHAIN_CONV_TOL, CHAIN_MAX_ITER, MoveGraph
+from tpeps_torch.ipeps.ipeps_c4v import symmetrize_c4v
+torch.backends.cuda.matmul.allow_tf32 = False
+dev, D, chi = torch.device("cuda", 0), 7, 147
+x = np.random.RandomState(0).rand(2, D, D, D, D) - 0.5
+a = symmetrize_c4v(torch.as_tensor(x, dtype=torch.float64), normalize=True).to(dev)
+env = init_env(a, chi, "CTMRG")
+T = mf.to_int_layout(env.T, D)
+P0 = mf.cold_start_basis(chi * D * D, chi, a.dtype, dev)
+kw = dict(n_power=2, slice_phys=True, dot_impl="ozaki")
+ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+eager = []
+for _ in range(3):
+    mf.ctm_move_sl_factored(a, env.C, T, P0, **kw)
+    torch.cuda.synchronize()
+    ev[0].record()
+    for _ in range(3):
+        mf.ctm_move_sl_factored(a, env.C, T, P0, **kw)
+    ev[1].record()
+    ev[1].synchronize()
+    eager.append(ev[0].elapsed_time(ev[1]) / 3)
+g = MoveGraph(a, chi, n_moves=4, **kw)
+g.load(a, env.C, T, P0, max_iter=CHAIN_MAX_ITER, conv_tol=CHAIN_CONV_TOL)
+g.run()
+g.run()
+torch.cuda.synchronize()
+ev[0].record()
+for _ in range(5):
+    g.run()
+ev[1].record()
+ev[1].synchronize()
+graphed = ev[0].elapsed_time(ev[1]) / 20
+del g
+f64 = []
+for _ in range(2):
+    stats = []
+    mf.run_ctmrg_mixed(a, env, max_iter=48, conv_tol=1e-8, slice_phys=True, moves_per_sync=4,
+                       stats=stats)
+    f64.append([st for st in stats if st["phase"] == "f64"][0])
+print("OZMOVE " + json.dumps({"eager_ozaki_move_ms": min(eager), "graphed_ozaki_move_ms": graphed,
+                              "mixed_f64_phase_s": [st["seconds"] for st in f64],
+                              "mixed_f64_phase_moves": [st["moves"] for st in f64]}))
+"""
+
+
+def oz_move_compare(parent) -> dict:
+    """One Ozaki move (phase 7(c)'s, slice_phys), the graphed Ozaki move (a
+    MoveGraph of 4) and ``run_ctmrg_mixed``'s float64 phase (twice, capture
+    included) in the parent's checkout and in this one, in turns (parent,
+    change, change, parent), each in a process of its own
+    (:data:`OZ_MOVE_CODE`)."""
+    out = {}
+    here = Path(__file__).resolve().parent
+    for i, (label, cwd) in enumerate((("parent", Path(parent)), ("change", here),
+                                      ("change", here), ("parent", Path(parent)))):
+        proc = subprocess.run([sys.executable, "-c", OZ_MOVE_CODE], cwd=cwd, capture_output=True,
+                              text=True, timeout=600)
+        line = [ln for ln in proc.stdout.splitlines() if ln.startswith("OZMOVE ")]
+        check(proc.returncode == 0 and bool(line),
+              f"Ozaki move in {label}'s checkout: rc {proc.returncode} {proc.stderr[-2000:]}")
+        r = json.loads(line[-1][7:])
+        out[f"{label} {i}"] = r
+        print(f"  Ozaki move ({label}): eager {r['eager_ozaki_move_ms']:.2f} ms, graphed "
+              f"{r['graphed_ozaki_move_ms']:.2f} ms/move; run_ctmrg_mixed's float64 phase "
+              + ", ".join(f"{t:.3f} s ({n} moves)" for t, n in zip(r["mixed_f64_phase_s"],
+                                                                 r["mixed_f64_phase_moves"])),
+              flush=True)
+    return out
 
 
 def ablate_solves(libs, in_turns, stream, dev, with_parent) -> dict:

@@ -21,6 +21,7 @@ from tpeps.ctm.c4v.env import init_env as j_init_env
 from tpeps.ipeps.ipeps_c4v import symmetrize_c4v as j_symmetrize
 from tpeps_torch.ctm.c4v import move_factored as tm
 from tpeps_torch.io.convert import to_torch
+from tpeps_torch.kernels.epilogue import t_epilogue_twin
 from test_torch_package import one_torch_thread  # noqa: F401  (autouse)
 
 CASES = [(2, 8), (3, 18)]
@@ -136,3 +137,29 @@ def test_full_move_complex_state():
     np.testing.assert_allclose(spect, specj, rtol=0, atol=1e-12)
     np.testing.assert_allclose(Ct, Cj, rtol=0, atol=1e-10)
     np.testing.assert_allclose(Tt, Tj, rtol=0, atol=1e-10)
+
+
+def _jax_epilogue(nT, norm):
+    """The epilogue lines of ``ctm_move_sl_tpu`` (move_tpu.py:239-248)."""
+    nT = 0.5 * (nT + jnp.conj(nT.transpose(0, 1, 3, 2)))
+    scale = jnp.abs(nT).max() if norm == "inf" else jnp.linalg.norm(nT.ravel())
+    return nT / scale
+
+
+@pytest.mark.parametrize("batch", [1, 5])
+@pytest.mark.parametrize("m", [1, 17, 33])
+@pytest.mark.parametrize("dtype", [np.float64, np.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("norm", ["inf", "fro"])
+def test_k4_epilogue_twin_is_jax(norm, dtype, m, batch):
+    """K4's twin (the kernel's reference on the card) against JAX's lines:
+    the max normalisation bit for bit (the same elementwise operations and
+    an exact max), the 2-norm to the summation order (1e-14 f64, 1e-6 f32
+    relative)."""
+    x = np.random.RandomState(31 * m + batch).uniform(-1, 1, (batch, 1, m, m)).astype(dtype)
+    ref = np.asarray(_jax_epilogue(jnp.asarray(x), norm))
+    out = t_epilogue_twin(torch.from_numpy(x), norm).numpy()
+    assert out.dtype == ref.dtype
+    if norm == "inf":
+        np.testing.assert_array_equal(out, ref)
+    else:
+        assert _rel(out, ref) <= (1e-14 if dtype == np.float64 else 1e-6)

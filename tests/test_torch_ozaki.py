@@ -300,3 +300,93 @@ def test_recombination_table_rejects_bad_slices():
     with pytest.raises(ValueError, match="slices"):
         ko.recombination_table(0, 7)
 
+
+
+def _bitfield_split(X, s, w, axis):
+    """A plain-torch int64 model of the split kernel's digit extraction
+    (csrc/ozaki.cu: row_scale, fixed_point, digits16): ex from the row's
+    max as the twin forms it; F = floor(|x| 2^(s w - ex)), x's significand
+    (hidden bit 0 for a subnormal) shifted by its exponent field; digit p =
+    (F >> ((s-1-p) w)) & mask times sign(x).  A row with a NaN or an
+    infinity gives zero digits; a row whose max is below 2^-1024 (2^-ex
+    infinite) gives the mask for every nonzero x, as the twin's saturating
+    int32 truncation does on the card."""
+    mx = X.abs().amax(dim=axis, keepdim=True)
+    ex = torch.floor(torch.log2(torch.where(mx == 0.0, torch.ones_like(mx), mx))) + 1.0
+    finite = torch.isfinite(ex)
+    bits = X.view(torch.int64)
+    mag = bits & 0x7FFFFFFFFFFFFFFF
+    E = mag >> 52
+    sig = (mag & ((1 << 52) - 1)) | torch.where(E > 0, 1 << 52, 0)
+    sh = torch.where(E > 0, E, 1) + (s * w - 1075) - torch.where(finite, ex, 0.0).to(torch.int64)
+    F = torch.where(sh >= 0, sig << sh.clamp(0, 63), sig >> (-sh).clamp(0, 63))
+    F = torch.where(sh <= -64, 0, F)
+    F = torch.where(finite & (ex <= -1024), torch.where(mag != 0, -1, 0), F)  # -1: every bit set
+    F = torch.where(finite, F, 0)
+    mask = (1 << w) - 1
+    planes = torch.stack([torch.where(bits < 0, -d, d).to(torch.int8)
+                          for d in ((F >> ((s - 1 - p) * w)) & mask for p in range(s))])
+    if axis == 0:
+        planes = planes.transpose(1, 2)
+    k = planes.shape[-1]
+    planes = torch.nn.functional.pad(planes, (0, padded_k(k) - k)).contiguous()
+    return planes, torch.exp2(ex).reshape(-1)
+
+
+def _mixed_rows(k, seed):
+    """Rows at k mixing exponents 2^-60 .. 2^60 with exact powers of two,
+    -0.0, subnormal entries, a zero row, a row of subnormals whose max is in
+    [2^-1023, 2^-1022), a row holding a NaN and one holding an infinity."""
+    rng = np.random.RandomState(seed)
+    X = rng.uniform(0.5, 1.0, (9, k)) * np.exp2(rng.randint(-60, 61, (9, k)))
+    X *= rng.choice([-1.0, 1.0], (9, k))
+    at = rng.rand(9, k) < 0.1
+    X[at] = np.exp2(rng.randint(-40, 41, at.sum()))
+    X[rng.rand(9, k) < 0.08] = -0.0
+    at = rng.rand(9, k) < 0.08
+    X[at] = 5e-324 * rng.randint(1, 1000, at.sum())
+    # every other row keeps a max above 2^-1024: below it the CPU twin's int32
+    # truncation of an infinity differs from the card's (held on the card)
+    X[np.abs(X).max(axis=1) < 2.0**-1000, 0] = 0.75
+    X[2] = 0.0
+    X[3] = np.linspace(-0.999, 0.5, k) * 2.0**-1022
+    X[4, k // 2] = np.nan
+    X[5, 0] = -np.inf
+    X[6] = np.exp2(rng.randint(-30, 30, k))  # exact powers of two
+    return X
+
+
+def _same(x, y):
+    return torch.equal(torch.isnan(x), torch.isnan(y)) and torch.equal(
+        torch.nan_to_num(x, nan=0.0), torch.nan_to_num(y, nan=0.0))
+
+
+@pytest.mark.parametrize("w", [7, 5, 3])
+@pytest.mark.parametrize("s", SLICES)
+def test_bitfield_digits_are_the_twin(s, w):
+    """The kernel's digit algorithm (the model) bit for bit against the twin,
+    rows and columns, k = 1, 31, 33 and 147."""
+    for k in (1, 31, 33, 147):
+        X = torch.from_numpy(_mixed_rows(k, 7 * k + s))
+        for axis, Y in ((1, X), (0, X.mT.contiguous())):
+            P, e = _bitfield_split(Y, s, w, axis)
+            Pt, et = ozaki_split_twin(Y, s, w, axis)
+            assert torch.equal(P, Pt), (k, axis)
+            assert _same(e, et), (k, axis)
+
+
+@pytest.mark.parametrize("s,w", [(8, 7), (6, 7), (8, 5), (2, 3)])
+def test_bitfield_digits_are_jax(s, w):
+    """The model against JAX's ``_split_int8`` on rows whose max is in [0.5,
+    1) (XLA's CPU exp2 is inexact at some integers, see the module
+    docstring), with subnormal entries, -0.0 and odd k."""
+    rng = np.random.RandomState(s + w)
+    for k in (1, 33, 147):
+        X = rng.uniform(-1, 1, (6, k)) * np.exp2(rng.randint(-50, 1, (6, k)))
+        X[:, 0] = 0.75
+        X[1, 1:] = -0.0
+        X[2, 1:] = 5e-324 * rng.randint(1, 1000, k - 1)
+        cj, ej = jo._split_int8(jnp.asarray(X), s, w, 1)
+        P, e = _bitfield_split(_t(X), s, w, 1)
+        np.testing.assert_array_equal(P[:, :, :k].numpy(), np.stack([np.asarray(c) for c in cj]))
+        np.testing.assert_array_equal(e.numpy(), np.asarray(ej).ravel())

@@ -68,22 +68,56 @@
 // once.  No split-K: the path's shapes have 339-16545 work items for 132
 // SMs.  Capturable in a CUDA graph: no host synchronisation, nothing
 // allocated, the attributes set on the first call.
+//
+// What bounds ozaki_split: bytes.  X is read once and s planes of kp bytes
+// a row are written: M2 (7203 x 7203) and Z, 415 MB in and 417 MB out, 0.25
+// ms at 3.35 TB/s; a layer's B (49 x 1.06M), 415 MB in and 542 MB out (kp =
+// 64), 0.29 ms.  Every element costs ~40 integer operations, so the split
+// has to keep enough loads in flight and touch each byte once.
+//
+// Split design.  Each row (axis 1) or column (axis 0) is read from device
+// memory once, in 16-byte loads where the address allows: rows of an odd k
+// start 8 bytes past a 16-byte boundary on every other row, and there the
+// row's first and last element are loaded alone.  A row or column is staged
+// in shared memory, its max reduced there, and its digits formed from the
+// staged values: F = floor(|x| 2^(s w - ex)) from x's exponent and
+// significand fields (an integer shift), digit p = (F >> ((s-1-p) w)) & mask
+// (row_scale, fixed_point, digits16), which is what the twin's words of
+// 28 // w digits hold, with no floating point per digit.  Each thread forms
+// 16 consecutive digits of a plane row and stores them as one 16-byte piece
+// per plane.  Rows: L threads a row (up to the block), the row's pairs
+// staged in a swizzled order so that each thread's 8 pairs fall on different
+// banks.  Columns: a block stages a panel of 128 columns (1 KB row pieces)
+// or 8 over a segment of k; where k is too long for one block, a cluster of
+// up to 8 blocks (16 past that) takes the segments and the column maxima go
+// round through distributed shared memory (Z and P at k = 7203: 8-column
+// panels in clusters of 8; a two-pass split would read Z twice: 0.37 ms of
+// bytes).  The launcher picks the plan (plan_cols); a row or column too
+// long to stage is read twice, 16 columns a block.  s = 8, w = 7 is compiled in; other (s, w)
+// take the instance that reads them at run time.
+#include <cooperative_groups.h>
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-// parts of ozaki_gemm left out for a timing breakdown, never in the library:
-// chip_smoke.py --ablate builds copies with -DTPEPS_ABLATE=<bits>, 2 the
-// wgmmas, 8 the recombination chains (one group sum converted instead), 16
-// the stores of C (kept only for a NaN, so the work before them stays)
+// parts of ozaki_gemm and ozaki_split left out for a timing breakdown, never
+// in the library: chip_smoke.py --ablate builds copies with
+// -DTPEPS_ABLATE=<bits>, 2 the wgmmas, 8 the recombination chains (one group
+// sum converted instead), 16 the stores of C (kept only for a NaN, so the
+// work before them stays); 32 the split's plane stores (kept for one
+// pattern), 64 its digit pass (loads, maxima and exponents only)
 #ifndef TPEPS_ABLATE
 #define TPEPS_ABLATE 0
 #endif
 
 namespace {
 
+namespace cg = cooperative_groups;
+
 constexpr int MAX_S = 8;
 constexpr int SNT = 256;        // threads of a split block
+constexpr int SPLIT_MINB = 3;   // split blocks an SM its registers are held to
+constexpr int SPLIT_UNROLL = 8; // 16-byte loads a split thread keeps in flight
 constexpr int BK = 32;          // k bytes per plane row: the planes' alignment, a gemm stage, a wgmma
 constexpr int TM = 64, TN = 64;    // the block tile: one wgmma m64n64 per pair
 // two consumer warpgroups and a producer warpgroup: registers go by
@@ -103,119 +137,361 @@ constexpr int RESIDENT_MAX = 64 * 1024;  // A's planes kept in shared memory up 
 // max that propagates NaN (as jnp.max does)
 __device__ __forceinline__ double nanmax(double a, double b) { return (a > b || a != a) ? a : b; }
 
-// the s signed w-bit digits of x 2^-ex (inv = 2^-ex), as _split_int8 forms
-// them; digits beyond s are not written
-__device__ __forceinline__ void digits(double x, double inv, int s, int w, int8_t* d) {
-  const double r = x * inv;
-  const int sgn = r < 0.0 ? -1 : 1;
-  double rem = fabs(r);
-  const int dpw = 28 / w > 1 ? 28 / w : 1;  // digits per int32 word
-  const int wb = dpw * w;
-  const double word_scale = ldexp(1.0, wb);
-  const int mask = (1 << w) - 1;
-  int u = 0;
-#pragma unroll
-  for (int c = 0; c < MAX_S; ++c) {
-    if (c < s) {
-      const int j = c % dpw;
-      if (j == 0) {
-        const double y = rem * word_scale;  // exact: a power-of-two shift
-        u = __double2int_rz(y);             // y in [0, 2^wb)
-        rem = __dsub_rn(y, static_cast<double>(u));
-      }
-      d[c] = static_cast<int8_t>(((u >> (wb - (j + 1) * w)) & mask) * sgn);
-    }
-  }
-}
+// How a row's digits follow from its max |x| = mx, ex = floor(log2(mx)) + 1
+// (1 where mx is 0), e = 2^ex, as _split_int8 forms them from R = x 2^-ex:
+//   DIGITS    the usual case: the s w leading bits of |x| 2^-ex,
+//             F = floor(|x| 2^(s w - ex)), read off x's bit fields as its
+//             53-bit significand (hidden bit 0 for a subnormal) shifted by
+//             exponent(x) - 52 - ex + s w; where R is subnormal, F is 0
+//             either way, so the twin's rounding of R never shows
+//   NONE      ex not finite (a NaN or an infinity in the row): R is NaN or
+//             0 and every digit is 0
+//   SATURATE  ex <= -1024 (the row's max below 2^-1024): 2^-ex is infinite,
+//             R = +-inf for x != 0, whose truncation to int32 saturates:
+//             every digit is the mask, times sign(x); NaN for x = 0: 0
+enum : int { DIGITS = 0, NONE = 1, SATURATE = 2 };
 
-// the power-of-two exponent of a row's max |x|, as floor(log2(mx)) + 1
+struct RowScale {
+  int mode;
+  int base;  // DIGITS: s w - ex - 1075, so that F = sig << (E + base) for E >= 1
+};
+
+// ex of a row's max, as the twin forms it
 __device__ __forceinline__ double row_exponent(double mx) {
-  if (mx == 0.0) mx = 1.0;
-  return floor(log2(mx)) + 1.0;
+  return floor(log2(mx == 0.0 ? 1.0 : mx)) + 1.0;
 }
 
-// rows of a row-major (m, k) matrix: one warp per row
-__global__ void __launch_bounds__(SNT)
+__device__ __forceinline__ RowScale row_scale(double ex, int sw) {
+  RowScale r;
+  r.mode = isfinite(ex) ? (ex <= -1024.0 ? SATURATE : DIGITS) : NONE;
+  r.base = r.mode == DIGITS ? sw - static_cast<int>(ex) - 1075 : 0;
+  return r;
+}
+
+__device__ __forceinline__ uint64_t fixed_point(double x, RowScale r) {
+  const uint64_t mag = static_cast<uint64_t>(__double_as_longlong(x)) & 0x7fffffffffffffffull;
+  if (r.mode != DIGITS) return r.mode == SATURATE && mag != 0 ? ~0ull : 0ull;
+  const int E = static_cast<int>(mag >> 52);
+  const uint64_t sig = (mag & 0x000fffffffffffffull) | (E ? 0x0010000000000000ull : 0ull);
+  const int sh = (E ? E : 1) + r.base;
+  return sh >= 0 ? sig << sh : (sh > -64 ? sig >> -sh : 0ull);
+}
+
+// the 4 x 4 byte transpose: w[p] byte j = a[j] byte p
+__device__ __forceinline__ void transpose4(const uint32_t (&a)[4], uint32_t& w0, uint32_t& w1,
+                                           uint32_t& w2, uint32_t& w3) {
+  const uint32_t t0 = __byte_perm(a[0], a[1], 0x5140), t1 = __byte_perm(a[0], a[1], 0x7362);
+  const uint32_t t2 = __byte_perm(a[2], a[3], 0x5140), t3 = __byte_perm(a[2], a[3], 0x7362);
+  w0 = __byte_perm(t0, t2, 0x5410);
+  w1 = __byte_perm(t0, t2, 0x7632);
+  w2 = __byte_perm(t1, t3, 0x5410);
+  w3 = __byte_perm(t1, t3, 0x7632);
+}
+
+// four 7-bit digits of a 28-bit field, most significant in byte 0
+__device__ __forceinline__ uint32_t spread7(uint32_t f) {
+  return ((f >> 21) & 0x7fu) | ((f >> 6) & 0x7f00u) | ((f << 9) & 0x7f0000u) |
+         ((f << 24) & 0x7f000000u);
+}
+
+// the digits of 16 consecutive elements of a row, plane p's 16 bytes in
+// o[p]: digit p = (F >> ((s-1-p) w)) & mask, times sign(x).  S = 0: s and w
+// at run time (the table-driven instance).  s = 8, w = 7: each element's
+// digits 0-3 and 4-7 packed a byte each from F's two 28-bit halves, negated
+// bytewise ((0x80 - d) ^ 0x80 is -d for d < 128), then four elements'
+// words transposed into the planes' bytes
+template <int S, int W>
+__device__ __forceinline__ void digits16(const double (&v)[16], RowScale r, int s, int w,
+                                         uint4 (&o)[MAX_S]) {
+  uint32_t word[MAX_S][4];
+  if constexpr (S == MAX_S && W == 7) {
+#pragma unroll
+    for (int g = 0; g < 4; ++g) {
+      uint32_t hi[4], lo[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const uint64_t F = fixed_point(v[4 * g + j], r);
+        hi[j] = spread7(static_cast<uint32_t>(F >> 28));
+        lo[j] = spread7(static_cast<uint32_t>(F));
+        if (__double_as_longlong(v[4 * g + j]) < 0) {
+          hi[j] = (0x80808080u - hi[j]) ^ 0x80808080u;
+          lo[j] = (0x80808080u - lo[j]) ^ 0x80808080u;
+        }
+      }
+      transpose4(hi, word[0][g], word[1][g], word[2][g], word[3][g]);
+      transpose4(lo, word[4][g], word[5][g], word[6][g], word[7][g]);
+    }
+  } else {
+    const uint32_t mask = (1u << w) - 1u;
+#pragma unroll
+    for (int p = 0; p < MAX_S; ++p)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) word[p][q] = 0u;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const uint64_t F = fixed_point(v[j], r);
+      const bool neg = __double_as_longlong(v[j]) < 0;
+#pragma unroll
+      for (int p = 0; p < MAX_S; ++p) {
+        if (p < s) {
+          uint32_t d = static_cast<uint32_t>(F >> ((s - 1 - p) * w)) & mask;
+          d = neg ? (0u - d) & 0xffu : d;
+          word[p][j / 4] |= d << (8 * (j % 4));
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int p = 0; p < MAX_S; ++p) o[p] = make_uint4(word[p][0], word[p][1], word[p][2], word[p][3]);
+}
+
+// plane p's 16 bytes at off of each of the s planes (plane bytes apart)
+__device__ __forceinline__ void store16(int8_t* planes, int64_t plane, int64_t off, int s,
+                                        const uint4 (&o)[MAX_S]) {
+#pragma unroll
+  for (int p = 0; p < MAX_S; ++p) {
+    if (p < s) {
+      uint4* dst = reinterpret_cast<uint4*>(planes + p * plane + off);
+      if (!(TPEPS_ABLATE & 32) || (o[p].x == 0x5a5a5a5au && o[p].y == 0xa5a5a5a5u)) *dst = o[p];
+    }
+  }
+}
+
+// a row's or column's max over L lanes (a power of two; the whole block
+// takes part, L > 32 through red, one slot a warp)
+__device__ __forceinline__ double group_max(double mx, int L, double* red) {
+  for (int o = (L < 32 ? L : 32) / 2; o > 0; o >>= 1)
+    mx = nanmax(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+  if (L > 32) {
+    if (threadIdx.x % 32 == 0) red[threadIdx.x / 32] = mx;
+    __syncthreads();
+    const int w0 = (threadIdx.x / L) * (L / 32);
+    mx = red[w0];
+    for (int i = 1; i < L / 32; ++i) mx = nanmax(mx, red[w0 + i]);
+  }
+  return mx;
+}
+
+// the staged row's pair q (elements 2q - h, 2q - h + 1) sits at slot
+// q ^ ((q >> 3) & 7): the 8 pairs of a 16-element chunk that one thread reads
+// land in 8 different 16-byte bank groups across neighbouring chunks
+__device__ __forceinline__ int row_slot(int q) { return q ^ ((q >> 3) & 7); }
+
+// rows of a row-major (m, k) matrix: L threads a row (a power of two, 4 to
+// SNT), SNT / L rows a block.  STAGED: each row staged once in shared
+// memory (pitch doubles: pairs of 16-byte loads, a scalar at a row's ends
+// where it starts 8 bytes past a 16-byte boundary), its max reduced over the
+// group, the digits formed from what is staged; else (a row too long to
+// stage) read twice from device memory
+template <int S, int W, bool STAGED>
+__global__ void __launch_bounds__(SNT, SPLIT_MINB)
 split_rows(const double* __restrict__ X, int8_t* __restrict__ planes, double* __restrict__ e,
-           int64_t m, int k, int kp, int s, int w) {
-  const int lane = threadIdx.x % 32;
-  const int64_t row = static_cast<int64_t>(blockIdx.x) * (SNT / 32) + threadIdx.x / 32;
-  if (row >= m) return;
-  const double* x = X + row * k;
+           int64_t m, int k, int kp, int s, int w, int L, int pitch) {
+  extern __shared__ double2 stage[];
+  __shared__ double red[SNT / 32];
+  const int g = threadIdx.x / L, lane = threadIdx.x % L;
+  const int64_t row = static_cast<int64_t>(blockIdx.x) * (SNT / L) + g;
+  const bool live = row < m;
+  const double* x = X + (live ? row : 0) * k;
+  const int h = static_cast<int>((reinterpret_cast<uintptr_t>(x) >> 3) & 1);
+  double2* st = stage + static_cast<int64_t>(g) * (pitch / 2);
   double mx = 0.0;
-  for (int c = lane; c < k; c += 32) mx = nanmax(mx, fabs(x[c]));
-  for (int o = 16; o > 0; o >>= 1) mx = nanmax(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-  const double ex = row_exponent(mx);
-  if (lane == 0) e[row] = exp2(ex);
-  const double inv = exp2(-ex);
-  const int64_t plane = m * kp;
-  int8_t* out = planes + row * kp;
-  for (int c0 = 4 * lane; c0 < kp; c0 += 128) {
-    uint32_t word[MAX_S];
+  if (STAGED) {
+    const int np = (kp + h + 1) / 2;  // pairs covering positions [0, kp + h)
+    constexpr int U = SPLIT_UNROLL;
+    for (int q0 = lane; q0 < np; q0 += U * L) {
+      double2 v[U];
 #pragma unroll
-    for (int p = 0; p < MAX_S; ++p) word[p] = 0u;
+      for (int u = 0; u < U; ++u) {
+        const int e0 = 2 * (q0 + u * L) - h;
+        if (live && e0 >= 0 && e0 + 1 < k) {
+          v[u] = __ldg(reinterpret_cast<const double2*>(x + e0));
+        } else {
+          v[u].x = live && e0 >= 0 && e0 < k ? __ldg(x + e0) : 0.0;
+          v[u].y = live && e0 + 1 >= 0 && e0 + 1 < k ? __ldg(x + e0 + 1) : 0.0;
+        }
+      }
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      if (c0 + j < k) {
-        int8_t d[MAX_S];
-        digits(x[c0 + j], inv, s, w, d);
-#pragma unroll
-        for (int p = 0; p < MAX_S; ++p)
-          if (p < s) word[p] |= static_cast<uint32_t>(static_cast<uint8_t>(d[p])) << (8 * j);
+      for (int u = 0; u < U; ++u) {
+        if (q0 + u * L < np) {
+          mx = nanmax(mx, nanmax(fabs(v[u].x), fabs(v[u].y)));
+          st[row_slot(q0 + u * L)] = v[u];
+        }
       }
     }
+  } else if (live) {
+    for (int c = lane; c < k; c += L) mx = nanmax(mx, fabs(__ldg(x + c)));
+  }
+  mx = group_max(mx, L, red);
+  __syncthreads();  // the staged rows are complete
+  const double ex = row_exponent(mx);
+  const RowScale r = row_scale(ex, S ? S * W : s * w);
+  if (live && lane == 0) e[row] = exp2(ex);
+  if (!live || (TPEPS_ABLATE & 64)) return;
+  const int64_t plane = m * kp;
+  for (int c = lane; c < kp / 16; c += L) {
+    double v[16];
+    if (STAGED) {
+      if (h == 0) {
 #pragma unroll
-    for (int p = 0; p < MAX_S; ++p)
-      if (p < s) *reinterpret_cast<uint32_t*>(out + p * plane + c0) = word[p];
+        for (int i = 0; i < 8; ++i) {
+          const double2 d = st[row_slot(8 * c + i)];
+          v[2 * i] = d.x;
+          v[2 * i + 1] = d.y;
+        }
+      } else {
+        double2 d = st[row_slot(8 * c)];
+        v[0] = d.y;
+#pragma unroll
+        for (int i = 1; i < 8; ++i) {
+          d = st[row_slot(8 * c + i)];
+          v[2 * i - 1] = d.x;
+          v[2 * i] = d.y;
+        }
+        v[15] = st[row_slot(8 * c + 8)].x;
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < 16; ++j) v[j] = 16 * c + j < k ? __ldg(x + 16 * c + j) : 0.0;
+    }
+    uint4 o[MAX_S];
+    digits16<S, W>(v, r, s, w, o);
+    store16(planes, plane, row * kp + 16 * c, S ? S : s, o);
   }
 }
 
-// columns of a row-major (k, n) matrix: 32 columns per block, planes (n, kp)
-__global__ void __launch_bounds__(SNT)
+// a staged column tile: row r (of the block's k segment), column c at
+// r NC + (r >> 4) 8 + c.  The digit pass's warps read 8 columns x 4 pieces of
+// 16 rows, rows 16 j + i: the 8 doubles a 16-row group is shifted by put the
+// four pieces on the two halves of the banks
+template <int NC>
+__device__ __forceinline__ int col_pos(int r, int c) { return r * NC + (r >> 4) * 8 + c; }
+
+struct ColPlan {
+  int seg;  // rows of k a block takes (a multiple of 16); the cluster spans kp
+  int cl;   // blocks of a cluster: ceil(kp / seg)
+};
+
+// columns of a row-major (k, n) matrix, planes (n, kp): a block a panel of NC
+// columns and a segment of seg rows; the cl blocks of a cluster take a
+// panel's segments, exchange the column maxima through distributed shared
+// memory and write the digits of their own rows
+template <int S, int W, int NC, bool STAGED>
+__global__ void __launch_bounds__(SNT, SPLIT_MINB)
 split_cols(const double* __restrict__ X, int8_t* __restrict__ planes, double* __restrict__ e,
-           int k, int64_t n, int kp, int s, int w) {
-  __shared__ double red[SNT / 32][32];
-  __shared__ uint32_t tile[MAX_S][32][9];  // [plane][column][word of 4 digits], padded
-  const int tx = threadIdx.x % 32, ty = threadIdx.x / 32;
-  const int64_t col = static_cast<int64_t>(blockIdx.x) * 32 + tx;
-  const bool in = col < n;
-  double mx = 0.0;
-  if (in)
-    for (int r = ty; r < k; r += SNT / 32) mx = nanmax(mx, fabs(X[static_cast<int64_t>(r) * n + col]));
-  red[ty][tx] = mx;
-  __syncthreads();
-  mx = red[0][tx];
-  for (int j = 1; j < SNT / 32; ++j) mx = nanmax(mx, red[j][tx]);
-  const double ex = row_exponent(mx);
-  if (in && ty == 0) e[col] = exp2(ex);
-  const double inv = exp2(-ex);
-  const int64_t plane = n * kp;
-  const int oc = threadIdx.x / 8, wd = threadIdx.x % 8;  // the word this thread writes
-  const int64_t ocol = static_cast<int64_t>(blockIdx.x) * 32 + oc;
-  for (int k0 = 0; k0 < kp; k0 += BK) {
-    uint32_t word[MAX_S];
+           int k, int64_t n, int kp, int s, int w, ColPlan cp) {
+  extern __shared__ double tile[];
+  __shared__ double red[SNT];
+  __shared__ double cmax[NC], cfin[NC];
+  __shared__ RowScale csc[NC];
+  constexpr int SLOTS = NC / 2 + 1;  // 16-byte loads of a row piece, one more where it starts 8 bytes in
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = cp.cl > 1 ? static_cast<int>(cluster.block_rank()) : 0;
+  const int64_t c0 = static_cast<int64_t>(blockIdx.x / cp.cl) * NC;
+  const int nc = static_cast<int>(n - c0 < NC ? n - c0 : NC);
+  const int k0 = rank * cp.seg;
+  const int k1 = k0 + cp.seg < kp ? k0 + cp.seg : kp;
+  const int kr = (k1 < k ? k1 : k) - k0;  // rows of X in the segment (<= 0: padding only)
+  const double* xs = X + static_cast<int64_t>(k0) * n + c0;
+  if (STAGED) {
+    constexpr int U = SPLIT_UNROLL;
+    for (int i0 = threadIdx.x; i0 < kr * SLOTS; i0 += U * SNT) {
+      double2 v[U];
 #pragma unroll
-    for (int p = 0; p < MAX_S; ++p) word[p] = 0u;
+      for (int u = 0; u < U; ++u) {
+        const int it = i0 + u * SNT;
+        const int rr = it / SLOTS, q = it - rr * SLOTS;
+        const double* xr = xs + static_cast<int64_t>(rr) * n;
+        const int h = static_cast<int>((reinterpret_cast<uintptr_t>(xr) >> 3) & 1);
+        const int ca = 2 * q - h;
+        v[u] = make_double2(0.0, 0.0);
+        if (it < kr * SLOTS) {
+          if (ca >= 0 && ca + 1 < nc) {
+            v[u] = __ldg(reinterpret_cast<const double2*>(xr + ca));
+          } else {
+            if (ca >= 0 && ca < nc) v[u].x = __ldg(xr + ca);
+            if (ca + 1 >= 0 && ca + 1 < nc) v[u].y = __ldg(xr + ca + 1);
+          }
+        }
+      }
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int r = k0 + 4 * ty + j;
-      if (in && r < k) {
-        int8_t d[MAX_S];
-        digits(X[static_cast<int64_t>(r) * n + col], inv, s, w, d);
-#pragma unroll
-        for (int p = 0; p < MAX_S; ++p)
-          if (p < s) word[p] |= static_cast<uint32_t>(static_cast<uint8_t>(d[p])) << (8 * j);
+      for (int u = 0; u < U; ++u) {
+        const int it = i0 + u * SNT;
+        const int rr = it / SLOTS, q = it - rr * SLOTS;
+        const double* xr = xs + static_cast<int64_t>(rr) * n;
+        const int h = static_cast<int>((reinterpret_cast<uintptr_t>(xr) >> 3) & 1);
+        const int ca = 2 * q - h;
+        if (it < kr * SLOTS) {
+          if (ca >= 0 && ca < nc) tile[col_pos<NC>(rr, ca)] = v[u].x;
+          if (ca + 1 >= 0 && ca + 1 < nc) tile[col_pos<NC>(rr, ca + 1)] = v[u].y;
+        }
       }
     }
-#pragma unroll
-    for (int p = 0; p < MAX_S; ++p)
-      if (p < s) tile[p][tx][ty] = word[p];
-    __syncthreads();
-    if (ocol < n)
-      for (int p = 0; p < s; ++p)
-        *reinterpret_cast<uint32_t*>(planes + p * plane + ocol * kp + k0 + 4 * wd) = tile[p][oc][wd];
     __syncthreads();
   }
+  // the segment's column maxima: SNT / NC threads a column, then in order
+  {
+    constexpr int P = SNT / NC;
+    const int c = threadIdx.x % NC, part = threadIdx.x / NC;
+    double mx = 0.0;
+    if (c < nc)
+      for (int rr = part; rr < kr; rr += P)
+        mx = nanmax(mx, fabs(STAGED ? tile[col_pos<NC>(rr, c)]
+                                    : __ldg(xs + static_cast<int64_t>(rr) * n + c)));
+    red[threadIdx.x] = mx;
+    __syncthreads();
+    if (threadIdx.x < NC) {
+      for (int i = 1; i < P; ++i) mx = nanmax(mx, red[i * NC + threadIdx.x]);
+      cmax[threadIdx.x] = mx;
+    }
+  }
+  if (cp.cl > 1) {
+    cluster.sync();  // every block's maxima are in place
+    if (threadIdx.x < NC) {
+      double mx = *cluster.map_shared_rank(cmax + threadIdx.x, 0);
+      for (int b = 1; b < cp.cl; ++b) mx = nanmax(mx, *cluster.map_shared_rank(cmax + threadIdx.x, b));
+      cfin[threadIdx.x] = mx;
+    }
+    asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");  // maxima read
+  } else if (threadIdx.x < NC) {
+    cfin[threadIdx.x] = cmax[threadIdx.x];
+  }
+  const int sw = S ? S * W : s * w;
+  if (threadIdx.x < NC) {
+    const double ex = row_exponent(cfin[threadIdx.x]);
+    csc[threadIdx.x] = row_scale(ex, sw);
+    if (rank == 0 && threadIdx.x < nc) e[c0 + threadIdx.x] = exp2(ex);
+  }
+  __syncthreads();
+  // digits: a warp at a time 8 columns x 4 pieces of 16 rows
+  const int J = (k1 - k0) / 16, jgs = (J + 3) / 4;
+  const int64_t plane = n * kp;
+  for (int t = threadIdx.x / 32; t < (NC / 8) * jgs && !(TPEPS_ABLATE & 64); t += SNT / 32) {
+    const int c = (t % (NC / 8)) * 8 + threadIdx.x % 8;
+    const int j = (t / (NC / 8)) * 4 + (threadIdx.x % 32) / 8;
+    if (c >= nc || j >= J) continue;
+    const RowScale r = csc[c];
+    double v[16];
+    if (STAGED) {
+      const double* col = tile + col_pos<NC>(16 * j, c);  // rows 16 j + i at i NC
+      if (16 * j + 16 <= kr) {
+#pragma unroll
+        for (int i = 0; i < 16; ++i) v[i] = col[i * NC];
+      } else {
+#pragma unroll
+        for (int i = 0; i < 16; ++i) v[i] = 16 * j + i < kr ? col[i * NC] : 0.0;
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < 16; ++i)
+        v[i] = 16 * j + i < kr ? __ldg(xs + static_cast<int64_t>(16 * j + i) * n + c) : 0.0;
+    }
+    uint4 o[MAX_S];
+    digits16<S, W>(v, r, s, w, o);
+    store16(planes, plane, (c0 + c) * kp + k0 + 16 * j, S ? S : s, o);
+  }
+  // no block leaves while another may still read its maxima
+  if (cp.cl > 1) asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
 
@@ -609,6 +885,119 @@ int64_t gemm_smem_bytes(int resident, int stages, int kp, int tiles_m) {
   return ring + a_res + X_BYTES + (2 * MAX_STAGES + 1) * 8;
 }
 
+// a row staged in shared memory up to this size (one block an SM); a
+// column block's staging, so that three share an SM
+constexpr int ROW_STAGE_MAX = 200 * 1024;
+constexpr int COL_STAGE = 64 * 1024;
+
+// a split instance's shared memory and non-portable cluster sizes (up to
+// 16), raised once (outside any later stream capture)
+template <typename K>
+cudaError_t split_attrs(K kernel, bool& set) {
+  if (set) return cudaSuccess;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         ROW_STAGE_MAX);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  set = err == cudaSuccess;
+  return err;
+}
+
+template <int S, int W, bool STAGED>
+cudaError_t launch_split_rows(const double* X, int8_t* planes, double* e, int64_t m, int k,
+                              int kp, int s, int w, int L, int pitch, cudaStream_t st) {
+  static bool set = false;
+  cudaError_t err = split_attrs(split_rows<S, W, STAGED>, set);
+  if (err != cudaSuccess) return err;
+  const int64_t blocks = (m + SNT / L - 1) / (SNT / L);
+  split_rows<S, W, STAGED><<<static_cast<unsigned>(blocks), SNT, (SNT / L) * pitch * 8, st>>>(
+      X, planes, e, m, k, kp, s, w, L, pitch);
+  return cudaGetLastError();
+}
+
+template <int S, int W>
+cudaError_t launch_split_rows(const double* X, int8_t* planes, double* e, int64_t m, int k,
+                              int kp, int s, int w, cudaStream_t st) {
+  // L threads a row, two 16-element chunks each where the row allows
+  const int half = (kp / 16 + 1) / 2;
+  int L = 4;
+  while (L < half && L < SNT) L *= 2;
+  int pitch = 16 * ((kp / 2 + 8) / 8);  // pairs of positions [0, kp + 1], in groups of 8
+  if (static_cast<int64_t>(SNT / L) * pitch * 8 > ROW_STAGE_MAX)
+    return launch_split_rows<S, W, false>(X, planes, e, m, k, kp, s, w, L, 0, st);
+  return launch_split_rows<S, W, true>(X, planes, e, m, k, kp, s, w, L, pitch, st);
+}
+
+int col_stage_bytes(int rows, int nc) { return (rows * nc + (rows + 15) / 16 * 8) * 8; }
+
+// 128-column panels (1 KB row pieces) where their segments fit COL_STAGE
+// in a cluster of at most max_cl blocks and give every SM a block, else
+// 8-column panels (the fewest blocks a cluster); else the plan with the most
+// blocks; returns false where none fits
+bool plan_cols(int k, int64_t n, int kp, int sms, int max_cl, int& nc_out, ColPlan& plan) {
+  int64_t best = 0;
+  constexpr int widths[2] = {128, 8};
+  for (int nc : widths) {
+    for (int cl = 1; cl <= max_cl; ++cl) {
+      const int seg = ((kp + cl - 1) / cl + 15) / 16 * 16;
+      const int rows = seg < k ? seg : k;
+      if (col_stage_bytes(rows, nc) > COL_STAGE) continue;
+      const int64_t blocks = (n + nc - 1) / nc * ((kp + seg - 1) / seg);
+      if (blocks > best) {
+        best = blocks;
+        nc_out = nc;
+        plan.seg = seg;
+        plan.cl = (kp + seg - 1) / seg;
+      }
+      break;
+    }
+    if (best >= sms) return true;
+  }
+  return best > 0;
+}
+
+template <int S, int W, int NC, bool STAGED>
+cudaError_t launch_split_cols(const double* X, int8_t* planes, double* e, int k, int64_t n,
+                              int kp, int s, int w, ColPlan plan, cudaStream_t st) {
+  static bool set = false;
+  cudaError_t err = split_attrs(split_cols<S, W, NC, STAGED>, set);
+  if (err != cudaSuccess) return err;
+  const int rows = plan.seg < k ? plan.seg : k;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>((n + NC - 1) / NC * plan.cl), 1, 1);
+  cfg.blockDim = dim3(SNT, 1, 1);
+  cfg.dynamicSmemBytes = STAGED ? col_stage_bytes(rows, NC) : 0;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = plan.cl;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, split_cols<S, W, NC, STAGED>, X, planes, e, k, n, kp, s, w,
+                            plan);
+}
+
+template <int S, int W>
+cudaError_t launch_split(const double* X, int8_t* planes, double* e, int64_t rows, int k, int kp,
+                         int s, int w, int axis, cudaStream_t st) {
+  if (axis == 1) return launch_split_rows<S, W>(X, planes, e, rows, k, kp, s, w, st);
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  // portable clusters first, then up to 16 blocks; else (k too long to
+  // stage) a 16-column panel a block, read twice
+  int nc = 16;
+  ColPlan plan = {kp, 1};
+  if (!plan_cols(k, rows, kp, sms, 8, nc, plan) &&
+      !plan_cols(k, rows, kp, sms, 16, nc, plan))
+    return launch_split_cols<S, W, 16, false>(X, planes, e, k, rows, kp, s, w, plan, st);
+  return nc == 128 ? launch_split_cols<S, W, 128, true>(X, planes, e, k, rows, kp, s, w, plan, st)
+                   : launch_split_cols<S, W, 8, true>(X, planes, e, k, rows, kp, s, w, plan, st);
+}
+
 }  // namespace
 
 extern "C" {
@@ -616,20 +1005,17 @@ extern "C" {
 int tpeps_ozaki_max_slices(void) { return MAX_S; }
 
 // axis 1: X (rows, k) row-major, one exponent per row; axis 0: X (k, rows)
-// row-major, one exponent per column.  planes: (s, rows, kp) int8.
+// row-major, one exponent per column.  planes: (s, rows, kp) int8, 16-byte
+// aligned.  s = 8, w = 7 takes the instance with both compiled in.
 int tpeps_ozaki_split(const double* X, int8_t* planes, double* e, int64_t rows, int k, int kp,
                       int s, int w, int axis, void* stream) {
   if (rows <= 0) return cudaSuccess;
-  if (s < 1 || s > MAX_S || w < 1 || w > 7 || kp % BK != 0 || kp < k) return cudaErrorInvalidValue;
+  if (s < 1 || s > MAX_S || w < 1 || w > 7 || k < 1 || kp % BK != 0 || kp < k ||
+      reinterpret_cast<uintptr_t>(X) % 8 != 0 || reinterpret_cast<uintptr_t>(planes) % 16 != 0)
+    return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (axis == 1) {
-    const int64_t blocks = (rows + SNT / 32 - 1) / (SNT / 32);
-    split_rows<<<static_cast<unsigned>(blocks), SNT, 0, st>>>(X, planes, e, rows, k, kp, s, w);
-  } else {
-    const int64_t blocks = (rows + 31) / 32;
-    split_cols<<<static_cast<unsigned>(blocks), SNT, 0, st>>>(X, planes, e, k, rows, kp, s, w);
-  }
-  return cudaGetLastError();
+  return s == MAX_S && w == 7 ? launch_split<MAX_S, 7>(X, planes, e, rows, k, kp, s, w, axis, st)
+                              : launch_split<0, 0>(X, planes, e, rows, k, kp, s, w, axis, st);
 }
 
 // C (m, n) f64 row-major from A's planes (s, m, kp) and B's (s, n, kp),

@@ -35,6 +35,17 @@ LAUNCHES = dict.fromkeys(KERNELS, 0)
 
 ARRIVAL_COUNTERS = 4096  # per device: the Gram's and K2's last-arriver counters
 _COUNTERS: dict = {}
+_BARRIERS: dict = {}
+
+
+def _device_zeros(store: dict, device, n: int, what: str) -> torch.Tensor:
+    c = store.get(device)
+    if c is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(f"{what}: call a kernel once on this device before capturing a "
+                               "graph")
+        c = store[device] = torch.zeros(n, dtype=torch.int32, device=device)
+    return c
 
 
 def arrival_counters(device) -> torch.Tensor:
@@ -42,13 +53,15 @@ def arrival_counters(device) -> torch.Tensor:
     in their last-arriving block (K3's Gram, K2's split-K): zero when made,
     and every launch leaves them zero again, so launches on one stream share
     them."""
-    c = _COUNTERS.get(device)
-    if c is None:
-        if torch.cuda.is_current_stream_capturing():
-            raise RuntimeError("arrival counters: call a kernel once on this device before "
-                               "capturing a graph")
-        c = _COUNTERS[device] = torch.zeros(ARRIVAL_COUNTERS, dtype=torch.int32, device=device)
-    return c
+    return _device_zeros(_COUNTERS, device, ARRIVAL_COUNTERS, "arrival counters")
+
+
+def barrier_counters(device) -> torch.Tensor:
+    """The two counters of K4's grid barrier on the device, apart from
+    :func:`arrival_counters` so that no other kernel's arrivals reach them:
+    zero when made, and every launch leaves them zero again, so launches of
+    ``t_epilogue`` share them as long as they are ordered on one stream."""
+    return _device_zeros(_BARRIERS, device, 2, "barrier counters")
 
 
 def reset_launch_counts() -> None:

@@ -54,8 +54,8 @@ _SIGNATURES = {
     "tpeps_ctm_commit_f64": (_vp,) * 14 + (_i64, _i64, _i64, _i64, _i, _i, _vp),
     "tpeps_ctm_commit_f32": (_vp,) * 14 + (_i64, _i64, _i64, _i64, _i, _i, _vp),
     "tpeps_ctm_commit_partials": (),
-    "tpeps_t_epilogue_f64": (_vp, _vp, _vp, _i64, _i, _i, _vp),
-    "tpeps_t_epilogue_f32": (_vp, _vp, _vp, _i64, _i, _i, _vp),
+    "tpeps_t_epilogue_f64": (_vp, _vp, _vp, _vp, _i64, _i, _i, _vp),
+    "tpeps_t_epilogue_f32": (_vp, _vp, _vp, _vp, _i64, _i, _i, _vp),
     "tpeps_t_epilogue_partials": (),
     "tpeps_block_permute_f64": (_vp,) * 7 + (_i, _i, _vp),
     "tpeps_block_permute_f32": (_vp,) * 7 + (_i, _i, _vp),

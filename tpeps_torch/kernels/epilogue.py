@@ -6,7 +6,7 @@ from __future__ import annotations
 
 import torch
 
-from . import LAUNCHES, require_contiguous, route, stream_of, suffix
+from . import LAUNCHES, barrier_counters, require_contiguous, route, stream_of, suffix
 from .build import library
 
 
@@ -30,11 +30,13 @@ def t_epilogue(nT, normalization: str = "inf"):
     batch = nT.numel() // (m * m) if m else 0
     lib = library()
     part = torch.empty(lib.cdll.tpeps_t_epilogue_partials(), dtype=nT.dtype, device=nT.device)
+    bar = barrier_counters(nT.device)
     out = torch.empty_like(nT)
     mode = 0 if normalization == "inf" else 1
     with torch.cuda.device(nT.device):
         err = getattr(lib.cdll, f"tpeps_t_epilogue_{suffix(nT)}")(
-            nT.data_ptr(), out.data_ptr(), part.data_ptr(), batch, m, mode, stream_of(nT))
+            nT.data_ptr(), out.data_ptr(), part.data_ptr(), bar.data_ptr(), batch, m, mode,
+            stream_of(nT))
     lib.check(err, "t_epilogue")
     LAUNCHES["t_epilogue"] += 1
     return out

@@ -24,9 +24,11 @@ from .build import library
 KP_ALIGN = 32  # the int8 wgmma's k depth; the planes' k is padded to it
 TAIL_BITS = 42  # digit groups with total * w >= 42 recombine in float32
 MAX_SLICES = 8  # the kernel's group sums per output: totals 2 .. MAX_SLICES + 1
-# launches of ozaki_gemm by (s, m, kp, n), counted beside LAUNCHES["ozaki_gemm"]
-# for eager calls (a CUDA graph's capture counts here once, its replays not)
+# launches of ozaki_gemm by (s, m, kp, n) and of ozaki_split by (axis, rows, k),
+# counted beside LAUNCHES["ozaki_gemm"] and LAUNCHES["ozaki_split"] for eager
+# calls (a CUDA graph's capture counts here once, its replays not)
 SHAPE_LAUNCHES: collections.Counter = collections.Counter()
+SPLIT_LAUNCHES: collections.Counter = collections.Counter()
 
 
 def padded_k(k: int) -> int:
@@ -99,6 +101,7 @@ def ozaki_split(X, s: int = 8, w: int = 7, axis: int = 1):
                                           kp, s, w, axis, stream_of(X))
     lib.check(err, "ozaki_split")
     LAUNCHES["ozaki_split"] += 1
+    SPLIT_LAUNCHES[axis, rows, k] += 1
     return planes, e
 
 
