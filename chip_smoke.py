@@ -7,9 +7,10 @@ prefix).  It needs no network and no JAX.  ``python3 chip_smoke.py --ablate
 [--parent DIR] [--only PARTS]`` runs phases 0 and 1 and then only
 :func:`ablate`, the timing breakdown of K1's fused double layer, K2's
 corner apply, K3's Gram and solves, K4's epilogue, K6's polar factor and
-its VJP, K7's ``ozaki_split`` and ``ozaki_gemm``, K8 and ``eigh_small``
-(with a parent checkout: its kernels, its cold start, its graphed move and
-its Ozaki move beside these).
+its VJP, K7's ``ozaki_split`` and ``ozaki_gemm``, K8, ``eigh_small``, K5's
+and K9's commits and K10's epilogue (with a parent checkout: its kernels,
+its cold start, its graphed move, its Ozaki move and its frozen move beside
+these).
 
 Phases (any failed check exits non-zero; there is no CPU fallback):
 
@@ -96,9 +97,11 @@ Phases (any failed check exits non-zero; there is no CPU fallback):
    relative, two calls bit-identical; each class of its schedule timed alone
    beside its bound), ``block_permute`` on every permute table of the move,
    the largest operand's, the corner's sector gather and its inverse
-   (bit-exact), and K9 ``frozen_commit`` (C, T bit-exact, dist2 <= 1e-12
-   relative) against their twins at the move's shapes, with kernel, twin and
-   bound times (``block_gemm``'s twin is the JAX package's design: one
+   (bit-exact), and K9 ``frozen_commit`` (:func:`frozen_commit_checks`: on
+   a frozen move's raw outputs and on a copy whose largest magnitude ties
+   many times, C, T bit-exact, dist2 <= 1e-12 relative; a loop that ended
+   untouched; two calls bit-identical; timed in CUDA graphs too) against
+   their twins at the move's shapes, with kernel, twin and bound times (``block_gemm``'s twin is the JAX package's design: one
    ``torch.bmm`` per shape group and ``index_add_``); the sector SVD drivers
    timed on the largest +-q sector;
    (b) the entry point ``tpeps_torch.examples.j1j2.abelian.ctmrg_j1j2_c4v_u1``
@@ -151,9 +154,10 @@ Phases (any failed check exits non-zero; there is no CPU fallback):
    kernel of the path launched), whose first gradient closure is (d)
    (frozen forward, adjoint, energy both ways, peak memory); on the closed
    context of (e)'s epoch, (a) K10 against its twins at one frozen move's
-   shapes (``generic_epilogue`` bit-exact, ``sweep_commit``'s state
-   bit-exact and dist2 <= 1e-12 relative, ``generic_epilogue_vjp`` both ways
-   <= 1e-12 relative) with kernel, twin and bound times, and (c) the frozen
+   shapes (``generic_epilogue`` bit-exact, two calls bit-identical, also
+   timed in CUDA graphs; ``sweep_commit``'s state bit-exact and dist2 <=
+   1e-12 relative, ``generic_epilogue_vjp`` both ways <= 1e-12 relative)
+   with kernel, twin and bound times, and (c) the frozen
    sweep (ms per sweep split into halves, decompositions, absorption,
    epilogue/commit; busy share; no plan built) and the same sweeps
    dynamically (energies within AB_E_FROZEN_TOL); (f) D=3: chi=18 dynamic
@@ -185,9 +189,13 @@ shape of the Ozaki move (M2 P; C T, 147 x 147 by 147 x 7203; T (C T) and T P,
 7203 x 147 by 147 x 7203; the sliced layer, 49 x 49 by 49 x 1.06M; P^T Z, 147
 x 7203 by 7203 x 7203) and at the unsliced ket and bra layers (98 x 49 by
 49 x 1.06M, 49 x 98 by 98 x 1.06M), each timed against FP64
-``torch.matmul`` with its own bound, ``ctm_commit``
-in both convergence modes (state identical, dist <= 1e-12 relative), a loop
-that ended, and one that reaches max_iter.
+``torch.matmul`` with its own bound, and ``ctm_commit``
+(:func:`commit_checks`) in f64 and f32, in both convergence modes: a loop
+that goes on, one that reaches max_iter, one that ended (untouched), a
+non-finite dist (inf), outputs off their 16-byte boundary by one element
+and outputs and inputs both off (state bit-identical to the twin, dist <=
+1e-12 (f64) or 1e-5 (f32) relative, two calls bit-identical), each mode
+timed eagerly and in CUDA graphs beside its bound.
 
 The last two lines of stdout are the per-kernel JSON record and
 ``{"ok": true, "device": {...}}``.
@@ -202,6 +210,7 @@ import itertools
 import json
 import math
 import multiprocessing
+import os
 import re
 import subprocess
 import sys
@@ -545,7 +554,25 @@ def phase0() -> str:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print("  TF32 disabled for matmul and cuDNN (torch.backends.*.allow_tf32 = False)")
+    print(f"  host: {os.cpu_count()} CPUs; {host_probe():.3f} s for a fixed numpy and Python "
+          "workload like the abelian host planning (sorts, unique, tuple keys): the host-bound "
+          "phases 8-10 scale with it across machines")
     return smi
+
+
+def host_probe() -> float:
+    """Seconds of a fixed host workload of the kind the abelian plans are
+    built from (the best of three)."""
+    rng = np.random.RandomState(0)
+    x = rng.randint(0, 1 << 20, size=(1 << 17, 3))
+    best = math.inf
+    for _ in range(3):
+        t0 = time.perf_counter()
+        np.unique(x, axis=0)
+        np.lexsort(x.T)
+        {tuple(r): i for i, r in enumerate(x[:1 << 15].tolist())}
+        best = min(best, time.perf_counter() - t0)
+    return best
 
 
 def phase1() -> None:
@@ -1479,6 +1506,86 @@ def epilogue_checks(gen, dev) -> dict:
     return times
 
 
+def offset_views(tensors, shift):
+    """Copies of ``tensors`` as views ``shift`` elements into buffers of their
+    own (off their 16-byte boundary for an odd shift)."""
+    out = []
+    for x in tensors:
+        buf = torch.zeros(x.numel() + shift, dtype=x.dtype, device=x.device)
+        out.append(buf[shift:].view(x.shape).copy_(x))
+    return out
+
+
+def commit_checks(start, move) -> dict:
+    """K5 ``ctm_commit`` against its twin after one move of the D=7 path
+    (``start`` = (C, T_int, P), ``move`` = (C2, T2, P2, W2, spec2)), f64 and
+    f32, both convergence modes: a loop that goes on, one that reaches
+    max_iter, one that ended (its state untouched), a non-finite spectrum
+    (dist = inf), outputs off their 16-byte boundary by one element (the
+    scalar path) and outputs and inputs both off (a scalar head, then
+    vectors); the state bit-identical to the twin's, dist <= 1e-12 (f64) or
+    1e-5 (f32) relative; two calls bit-identical.  Each mode and dtype timed
+    eagerly and in CUDA graphs beside its bound."""
+    from tpeps_torch.kernels import ctm_loop
+
+    out = {}
+    for dtype in (torch.float64, torch.float32):
+        tol, sfx = TOL[dtype], "f64" if dtype == torch.float64 else "f32"
+        C0, T0, P0 = (x.to(dtype) for x in start)
+        C2, T2, P2, W2, spec2 = (x.to(dtype).contiguous() for x in move)
+        bad = spec2.clone()
+        bad[3] = math.nan
+        badT = T2.clone()
+        badT.view(-1)[5] = math.nan
+        for conv_on in ("spec", "env"):
+            moved = (C2, T2, P2, W2, spec2)
+            # a NaN where this mode's dist reads: the spectrum, or T
+            nonfinite = (C2, T2, P2, W2, bad) if conv_on == "spec" else (C2, badT, P2, W2, spec2)
+            cases = [("goes on", MAX_ITER, 0, moved, None), ("reaches max_iter", 1, 0, moved, None),
+                     ("ended", MAX_ITER, 1, moved, None),
+                     ("non-finite dist", MAX_ITER, 0, nonfinite, None),
+                     ("outputs off by one", MAX_ITER, 0, moved, "out"),
+                     ("outputs and inputs off by one", MAX_ITER, 0, moved, "both")]
+            for label, max_iter, done, mv, off in cases:
+                st_k, st_t, st_2 = (ctm_loop.loop_state(C0, T0, P0, max_iter, CONV_TOL)
+                                    for _ in range(3))
+                new = mv[:4]
+                if off is not None:
+                    st_k = st_k._replace(**dict(zip(("C", "T", "P", "W", "spec"), offset_views(
+                        (st_k.C, st_k.T, st_k.P, st_k.W, st_k.spec), 1))))
+                if off == "both":
+                    new = tuple(offset_views(new, 1))
+                for st in (st_k, st_t, st_2):
+                    st.spec.copy_(spec2.abs() * 0.5)  # a previous spectrum: a finite dist
+                    st.ctl[1] = done
+                ctm_loop.ctm_commit(st_k, *new, mv[4], conv_on=conv_on)
+                ctm_loop.ctm_commit(st_2, *new, mv[4], conv_on=conv_on)
+                ctm_loop.ctm_commit_twin(st_t, *mv, conv_on)
+                same = all(same_float(x, y) for x, y in zip(st_k[:5], st_t[:5]))
+                same &= torch.equal(st_k.ctl[:2], st_t.ctl[:2])
+                twice = all(same_float(x, y) for x, y in zip(st_k[:7], st_2[:7]))
+                twice &= torch.equal(st_k.ctl, st_2.ctl)
+                inf = math.isinf(float(st_t.dist))
+                e = 0.0 if torch.equal(st_k.dist, st_t.dist) else rel_err(st_k.dist, st_t.dist)
+                committed = same_float(st_k.T, mv[1])
+                check(same and twice and e <= tol and committed != bool(done)
+                      and inf == (label == "non-finite dist" or bool(done)),
+                      f"ctm_commit {sfx} conv_on={conv_on}, {label}: state and (i, done) = "
+                      f"{st_k.ctl[:2].tolist()} as the twin, dist {float(st_k.dist):.3e} (rel "
+                      f"err {e:.1e} <= {tol:.0e}), committed={committed}; two calls "
+                      "bit-identical")
+            # timed on a loop that never ends (conv_tol -1: every dist is above it)
+            st = ctm_loop.loop_state(C0, T0, P0, 10**9, -1.0)
+            call = lambda: ctm_loop.ctm_commit(st, C2, T2, P2, W2, spec2, conv_on=conv_on)
+            nb = 2 * nbytes(C2, T2, P2, W2, spec2) + (nbytes(C2, T2) if conv_on == "env" else 0)
+            b_ms, _ = bound(nb, 0, FP64_CC)
+            ms_e, ms_g = cuda_ms(call), graph_ms(call)
+            out[f"{sfx} {conv_on}"] = {"eager_ms": ms_e, "graph_ms": ms_g, "bound_ms": b_ms}
+            print(f"  ctm_commit {sfx} {conv_on}: in CUDA graphs {ms_g * 1000:.2f} us, eager "
+                  f"{ms_e * 1000:.2f} us, bound {b_ms * 1000:.2f} us ({nb / 1e6:.1f} MB)")
+    return {"graph_ms": out}
+
+
 def phase2_large_d(dev) -> dict:
     """The large-D slice's kernels against their twins at D=7, chi=147 f64."""
     print(f"== phase 2 (large-D slice): eigh_small, ozaki_split, ozaki_gemm, ctm_commit at "
@@ -1600,25 +1707,9 @@ def phase2_large_d(dev) -> dict:
         shapes["C T, s=6"] = oz_shape(env.C, T_int.permute(3, 0, 1, 2).reshape(CHI, -1), 6)
         del M2, q1, Tm
 
-        # ctm_commit after one move, in both modes, against the twin
+        # ctm_commit after one move, in both modes and dtypes, against the twin
         C2, T2, spec2, P2, W2 = mf.ctm_move_w(a, env.C, T_int, P, n_power=N_POWER)
-        for conv_on in ("spec", "env"):
-            for max_iter, done in ((MAX_ITER, 0), (1, 0), (MAX_ITER, 1)):
-                st_k = ctm_loop.loop_state(env.C, T_int, P, max_iter, CONV_TOL)
-                st_t = ctm_loop.loop_state(env.C, T_int, P, max_iter, CONV_TOL)
-                for st in (st_k, st_t):
-                    st.spec.copy_(spec2.abs() * 0.5)  # a previous spectrum: a finite dist
-                    st.ctl[1] = done
-                ctm_loop.ctm_commit(st_k, C2, T2, P2, W2, spec2, conv_on=conv_on)
-                ctm_loop.ctm_commit_twin(st_t, C2, T2, P2, W2, spec2, conv_on)
-                same = all(torch.equal(x, y) for x, y in zip(st_k[:5], st_t[:5]))
-                same &= torch.equal(st_k.ctl[:2], st_t.ctl[:2])
-                e = 0.0 if torch.equal(st_k.dist, st_t.dist) else rel_err(st_k.dist, st_t.dist)
-                committed = torch.equal(st_k.T, T2)
-                check(same and e <= tol and committed != bool(done),
-                      f"ctm_commit conv_on={conv_on} max_iter={max_iter} done={done}: state and "
-                      f"(i, done) = {st_k.ctl[:2].tolist()} as the twin, dist {float(st_k.dist):.3e} "
-                      f"(rel err {e:.1e}), committed={committed}")
+        rec["ctm_commit"] = commit_checks((env.C, T_int, P), (C2, T2, P2, W2, spec2))
         st_k = ctm_loop.loop_state(env.C, T_int, P, 10**9, -1.0)
         st_t = ctm_loop.loop_state(env.C, T_int, P, 10**9, -1.0)
         time_case(rec, "ctm_commit",
@@ -1980,6 +2071,100 @@ def ab_energy(model, st, env):
     return float(model.energy_per_site(bp, g))
 
 
+def tied_raw(raw, partner, gen):
+    """``raw`` with 16 transpose pairs (and 16 entries of their own) set to
+    +-2 max|raw|: a largest magnitude that appears many times, bit for bit,
+    after the symmetrization."""
+    out = raw.clone()
+    m = 2 * float(raw.abs().max())
+    idx = torch.randperm(raw.numel(), generator=gen, device=raw.device)[:32]
+    sign = torch.where(torch.arange(32, device=raw.device) % 2 == 0, m, -m).to(raw.dtype)
+    out[idx] = sign
+    has = partner[idx] >= 0
+    out[partner[idx][has]] = sign[has]
+    return out
+
+
+def pair_partners(n, gen, dev):
+    """A transpose-partner table of ``n`` entries: random pairs that partner
+    each other, 64 entries their own partner (a diagonal), and the rest (one
+    in eight or so) without a partner (-1: a block the move does not make)."""
+    perm = torch.randperm(n, generator=gen, device=dev)
+    p = torch.full((n,), -1, dtype=torch.int64, device=dev)
+    m = (n * 7 // 8) // 2 * 2
+    p[perm[0:m:2]], p[perm[1:m:2]] = perm[1:m:2], perm[0:m:2]
+    p[perm[m:m + 64]] = perm[m:m + 64]
+    return p
+
+
+# K9's and K10's partitions past their kept values: more entries than a
+# resident grid keeps in registers (KEEP = 8 a thread: 540,672 on 132 SMs),
+# at odd counts
+WIDE_C, WIDE_T = 20001, 1000003
+
+
+def frozen_commit_checks(C, T, rawC, rawT, pC, pT) -> dict:
+    """K9 ``frozen_commit`` against its twin on one frozen move's raw
+    outputs, on a copy whose largest magnitude ties many times, and on a
+    layout of odd sizes wider than the values the grid keeps in registers
+    (:data:`WIDE_C`, :data:`WIDE_T`, :func:`pair_partners`: every thread
+    reads some of its elements again after the barrier); C, T bit-exact,
+    (i, done) equal, dist2 <= 1e-12 relative; a state whose loop ended left
+    untouched; two calls bit-identical; timed eagerly and in CUDA graphs
+    beside its bound (32 bytes an element: raw, partner index, the committed
+    value read and written; the partner's raw value is an element of the same
+    raw buffer), the calls alternating between the two raw buffers so that
+    every call commits (a repeated input gives dist2 = 0, which ends the
+    loop)."""
+    from tpeps_torch.kernels import frozen as kfrozen
+
+    dev = rawC.device
+    gen = torch.Generator(device=dev).manual_seed(13)
+    rnd = lambda n: torch.randn(n, generator=gen, device=dev, dtype=C.dtype)
+    raws = {"the move's raw outputs": (C, T, rawC, rawT, pC, pT),
+            "max ties": (C, T, tied_raw(rawC, pC, gen), tied_raw(rawT, pT, gen), pC, pT),
+            f"a wide layout ({WIDE_C} + {WIDE_T} entries)":
+                (rnd(WIDE_C), rnd(WIDE_T), rnd(WIDE_C), rnd(WIDE_T),
+                 pair_partners(WIDE_C, gen, dev), pair_partners(WIDE_T, gen, dev))}
+    errs = []
+    for label, (C0, T0, rC, rT, qC, qT) in raws.items():
+        for done in (0, 1):
+            sk, s2, stw = (kfrozen.frozen_state(C0, T0, AB_FROZEN_MOVES, 0.0) for _ in range(3))
+            for st in (sk, s2, stw):
+                st.ctl[1] = done
+            kfrozen.frozen_commit(sk, rC, rT, qC, qT)
+            kfrozen.frozen_commit(s2, rC, rT, qC, qT)
+            kfrozen.frozen_commit_twin(stw, rC, rT, qC, qT)
+            e_d = 0.0 if torch.equal(sk.dist2, stw.dist2) else rel_err(sk.dist2, stw.dist2)
+            errs.append(max(float((x - y).abs().max())
+                            for x, y in ((sk.C, stw.C), (sk.T, stw.T), (sk.dist2, stw.dist2))))
+            untouched = torch.equal(sk.C, C0) and torch.equal(sk.T, T0)
+            check(torch.equal(sk.C, stw.C) and torch.equal(sk.T, stw.T) and e_d <= TOL[torch.float64]
+                  and torch.equal(sk.ctl[:2], stw.ctl[:2]) and untouched == bool(done)
+                  and all(torch.equal(x, y) for x, y in zip(sk, s2)),
+                  f"frozen_commit on {label}{', loop ended' if done else ''}: C, T bit-exact, "
+                  f"(i, done) {sk.ctl[:2].tolist()}, dist2 {float(sk.dist2):.6e} rel err "
+                  f"{e_d:.1e} <= 1e-12, state {'untouched' if untouched else 'committed'}; two "
+                  "calls bit-identical")
+    nel = C.numel() + T.numel()
+    (_, _, aC, aT, _, _), (_, _, bC, bT, _, _) = list(raws.values())[:2]
+    sk, stw = (kfrozen.frozen_state(C, T, 10**9, 0.0) for _ in range(2))
+    turn, turn_t = (itertools.cycle(((aC, aT), (bC, bT))) for _ in range(2))
+    call = lambda: kfrozen.frozen_commit(sk, *next(turn), pC, pT)
+    twin = lambda: kfrozen.frozen_commit_twin(stw, *next(turn_t), pC, pT)
+    b_ms, b_by = bound(8 * 4 * nel, 6 * nel, FP64_CC)
+    ms_e, tw_ms = cuda_ms(call, reps=6), cuda_ms(twin, reps=6)
+    tw_ms, ms_e = min(tw_ms, cuda_ms(twin, reps=6)), min(ms_e, cuda_ms(call, reps=6))
+    ms_g = graph_ms(call)
+    check(int(sk.ctl[1]) == 0, "frozen_commit timing: every timed call committed (the loop "
+                               "did not end)")
+    print(f"  frozen_commit ({nel} entries): in CUDA graphs {ms_g * 1000:.2f} us, eager "
+          f"{ms_e * 1000:.2f} us, twin {tw_ms * 1000:.2f} us, bound {b_ms * 1000:.2f} us "
+          f"({b_by})")
+    return {"max_abs_err": max(errs), "ms": ms_e, "plain_ms": tw_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": None, "graph_ms": ms_g}
+
+
 def phase8(dev) -> tuple:
     print(f"== phase 8: the abelian slice, U(1) C4v J1-J2 D=8 chi={AB_CHI} float64", flush=True)
     from tpeps_torch.ctm.c4v_abelian import ctmrg as ab_ctmrg
@@ -2206,25 +2391,7 @@ def phase8(dev) -> tuple:
     nC, nT = ab_frozen._move_raw(a, C, T, dict(keep))
     pC = ab_frozen.partner_index(C.struct, ab_frozen.C_PARTNER, dev)
     pT = ab_frozen.partner_index(T.struct, ab_frozen.T_PARTNER, dev)
-    sk = kfrozen.frozen_state(C.data, T.data, AB_FROZEN_MOVES, 0.0)
-    stw = kfrozen.frozen_state(C.data, T.data, AB_FROZEN_MOVES, 0.0)
-    kfrozen.frozen_commit(sk, nC.data, nT.data, pC, pT)
-    kfrozen.frozen_commit_twin(stw, nC.data, nT.data, pC, pT)
-    e_d = rel_err(sk.dist2, stw.dist2)
-    err_commit = max(float((x - y).abs().max())
-                     for x, y in ((sk.C, stw.C), (sk.T, stw.T), (sk.dist2, stw.dist2)))
-    check(torch.equal(sk.C, stw.C) and torch.equal(sk.T, stw.T) and e_d <= TOL[torch.float64]
-          and torch.equal(sk.ctl[:2], stw.ctl[:2]),
-          f"frozen_commit: C, T bit-exact, (i, done) {sk.ctl[:2].tolist()}, dist2 "
-          f"{float(sk.dist2):.6e} rel err {e_d:.1e} <= 1e-12")
-    nel = C.struct.numel + T.struct.numel
-    sk2 = kfrozen.frozen_state(C.data, T.data, 10**9, -1.0)
-    st2 = kfrozen.frozen_state(C.data, T.data, 10**9, -1.0)
-    time_case(rec, "frozen_commit",
-              lambda: (kfrozen.frozen_commit(sk2, nC.data, nT.data, pC, pT), sk2.T)[1],
-              lambda: (kfrozen.frozen_commit_twin(st2, nC.data, nT.data, pC, pT), st2.T)[1],
-              None, 8 * 5 * nel, 6 * nel, FP64_CC)
-    rec["frozen_commit"]["max_abs_err"] = max(rec["frozen_commit"]["max_abs_err"], err_commit)
+    rec["frozen_commit"] = frozen_commit_checks(C.data, T.data, nC.data, nT.data, pC, pT)
     del nC, nT
 
     # bench's case: 10 frozen moves, timed after one warm-up move (the host
@@ -2846,7 +3013,9 @@ def phase10(dev) -> tuple:
     from tpeps_torch.examples.j1j2.abelian import ctmrg_j1j2_u1
     from tpeps_torch.examples.j1j2.abelian.optim_j1j2_u1 import main as gen_opt_main
     from tpeps_torch.kernels import frozen_generic as kgen
-    from tpeps_torch.kernels import blocksparse, launch_counts, reset_launch_counts
+    from tpeps_torch.kernels import (barrier_counters, blocksparse, launch_counts,
+                                     reset_launch_counts)
+    from tpeps_torch.kernels.build import library
     from tpeps_torch.models.abelian.j1j2 import J1J2_ABELIAN
     from tpeps_torch.optim import abelian as gen_optim
     from tpeps_torch.profiling import PhaseTimers
@@ -2868,6 +3037,15 @@ def phase10(dev) -> tuple:
     pk = ["--CTMARGS_projector_svd_reltol", "1e-12", "--CTMARGS_projector_eps_multiplet", "1e-12"]
     dirs = gct.sweep_directions(st, gfz.MOVE_SEQ)
 
+    # the phase's seconds by part, and the host's plan building in each
+    parts, marks = {}, [(time.perf_counter(), ab_tensor.plan_cache_stats()["build_seconds"])]
+
+    def part_done(name):
+        t, b = time.perf_counter(), ab_tensor.plan_cache_stats()["build_seconds"]
+        parts[name] = (t - marks[-1][0], b - marks[-1][1])
+        marks.append((t, b))
+
+    part_done("set-up (the state, the worker started)")
     # (b) the entry point on the written state, then one more sweep profiled
     with tempfile.TemporaryDirectory() as tmp:
         path = str(Path(tmp) / "u1_bipartite_D8.json")
@@ -2950,6 +3128,7 @@ def phase10(dev) -> tuple:
               f"({1000 * dev_b:.1f} ms device)")
         del envs
 
+        part_done("(b) the entry point, the K8 checks, the profiled move")
         # (e) the generic training entry point on the D=8 state, whose first
         # gradient closure is (d); the closed context of its epoch is kept
         # for (a) and (c)
@@ -3015,6 +3194,7 @@ def phase10(dev) -> tuple:
     rec_t = {"seconds_per_gradient": sum(hist["t_grad"]) / len(stats_e),
              "seconds_training_run": wall, "peak_gib_training": peak / 2**30}
 
+    part_done("(e) the training epoch")
     # (a) and (c) on the closed context of (e)'s epoch (freeze_profiles and
     # close_structure_generic on one dynamic sweep's environment)
     st_c, keeps, env_c = closed[0]
@@ -3032,12 +3212,41 @@ def phase10(dev) -> tuple:
     Wk, Wt = X.clone(), X.clone()
     kgen.generic_epilogue(raw, seg, Wk)
     kgen.generic_epilogue_twin(raw, seg, Wt)
-    check(torch.equal(Wk, Wt), f"generic_epilogue on one frozen move's {len(seg.host)} "
-                               f"outputs ({raw.numel()} entries, {seg.nblk} blocks): "
-                               "bit-exact")
+    W2 = X.clone()
+    kgen.generic_epilogue(raw, seg, W2)
+    check(torch.equal(Wk, Wt) and torch.equal(Wk, W2),
+          f"generic_epilogue on one frozen move's {len(seg.host)} outputs ({raw.numel()} "
+          f"entries, {seg.nblk} blocks): bit-exact; two calls bit-identical")
+    del W2
+    # a table of more segments than a launch takes (64: it is walked in
+    # launches), of odd lengths (one of 1), wider than the values the grid
+    # keeps in registers (WIDE_T), written into slots in reverse order, one
+    # output holding a NaN (that output NaN in both)
+    gen = torch.Generator(device="cpu").manual_seed(10)
+    lens = [1] + (torch.randint(0, 8000, (129,), generator=gen) * 2 + 1).tolist()
+    ends = np.cumsum(lens[::-1])[::-1]
+    wide = kgen.segment_table([(int(e) - n, [n]) for e, n in zip(ends, lens)], dev)
+    raw_w = torch.randn(wide.numel, generator=gen, dtype=torch.float64).to(dev)
+    raw_w[sum(lens[:70]) + lens[70] // 2] = math.nan
+    wk, wt, w2 = (torch.zeros_like(raw_w) for _ in range(3))
+    kgen.generic_epilogue(raw_w, wide, wk)
+    kgen.generic_epilogue_twin(raw_w, wide, wt)
+    kgen.generic_epilogue(raw_w, wide, w2)
+    gbar = barrier_counters(dev, "generic_epilogue",
+                            library().cdll.tpeps_generic_epilogue_bar_words())
+    check(same_float(wk, wt) and same_float(wk, w2) and int(torch.isnan(wk).sum()) == lens[70]
+          and int(gbar.abs().sum()) == 0,
+          f"generic_epilogue on {len(lens)} segments ({wide.numel} entries, odd lengths, one "
+          f"of them NaN): bit-exact, that output NaN; two calls bit-identical; barrier words "
+          "left 0")
+    del wk, wt, w2, raw_w
     time_case(rec, "generic_epilogue", lambda: (kgen.generic_epilogue(raw, seg, Wk), Wk)[1],
               lambda: (kgen.generic_epilogue_twin(raw, seg, Wt), Wt)[1], None,
               8 * 2 * raw.numel(), raw.numel(), FP64_CC)
+    rec["generic_epilogue"]["graph_ms"] = graph_ms(lambda: kgen.generic_epilogue(raw, seg, Wk))
+    rec["generic_epilogue"]["segments"] = [int(x) for x in seg.host[:, 2]]
+    print(f"  generic_epilogue in CUDA graphs {rec['generic_epilogue']['graph_ms'] * 1000:.2f} "
+          f"us (segments {rec['generic_epilogue']['segments']})")
     sk, stw = kgen.sweep_state(X, 10, 0.0), kgen.sweep_state(X, 10, 0.0)
     kgen.sweep_commit(sk, Wk)
     kgen.sweep_commit_twin(stw, Wk)
@@ -3064,6 +3273,7 @@ def phase10(dev) -> tuple:
               8 * 3 * raw.numel(), 5 * raw.numel(), FP64_CC)
     del raws, raw, Wk, Wt, sk, stw, sk2, st2, g
 
+    part_done("(a) K10 against its twins")
     # (c) the frozen engine from the context: its sweeps timed by parts under
     # the profiler (the plans of its first move are (a)'s), then the same
     # sweeps dynamically from the same start
@@ -3109,10 +3319,12 @@ def phase10(dev) -> tuple:
 
     rec["generic_epilogue_vjp"].update(rec_t)
 
+    part_done("(c) the frozen and the dynamic sweep")
     # (f) D=3: card against the CPU twins, whose side the worker started at
     # the top of this phase computed from the same seeds
     ref = small_cpu.result()
     pool.shutdown()
+    part_done("(f) waiting for the CPU worker")
     print(f"  D=3 CPU side from the worker process: {ref['seconds']:.1f} s, overlapped with "
           "(b)-(c)")
     st_c = ref["state"]
@@ -3144,9 +3356,19 @@ def phase10(dev) -> tuple:
           f"{sd['forward_sweeps']} (CPU {sc['forward_sweeps']}), adjoint iterations "
           f"{sd['adjoint_iters']} (CPU {sc['adjoint_iters']}), R != 1 {sd['sign_aligned']} "
           f"(CPU {sc['sign_aligned']})")
+    part_done("(f) the D=3 card side")
+    print("  phase 10 by part (seconds, of them host plan building): " + "; ".join(
+        f"{k} {t:.1f} ({b:.1f})" for k, (t, b) in parts.items()))
     return rec, counts_entry, counts_frozen, counts_train
 
 
+# the timing copies of K10's generic_epilogue and K9's frozen_commit: the
+# launch alone, without the grid barrier, without stores; frozen_commit also
+# without the last block's sum and without the partner gather
+COMMIT_COPIES = {0: "whole", 1: "launch and set-up only", 2: "no grid barrier", 4: "no stores"}
+FROZEN_COPIES = {**COMMIT_COPIES, 8: "no last block's sum", 16: "no partner gather"}
+# K5's ctm_commit and a copy of it in 16-byte vectors, four loads in flight a thread
+CTM_COPIES = {0: "whole", "-DTPEPS_CTM_VEC=1": "16-byte copy"}
 # what each -DTPEPS_ABLATE bit leaves out (csrc/cholqr.cu, csrc/ozaki.cu,
 # csrc/eigh_small.cu, csrc/double_layer.cu, csrc/corner_apply.cu,
 # csrc/polar.cu); the copies of eigh_small.cu run every sweep (64) and those
@@ -3180,21 +3402,25 @@ ABLATIONS = {"cholqr.cu": {0: "whole", 1: "no loads", 2: "no MMAs", 3: "no loads
              "polar.cu": {0: "whole", 8: "every step to the cap", 9: "no exchange",
                           10: "no products", 13: "no exchange, no step barrier",
                           16: "no staging", 32: "no gather",
-                          "-DTPEPS_POLAR_DEPTH=3": "12 k-steps of loads in flight"}}
+                          "-DTPEPS_POLAR_DEPTH=3": "12 k-steps of loads in flight"},
+             "ctm_commit.cu": CTM_COPIES,
+             "frozen_commit.cu": FROZEN_COPIES, "frozen_generic.cu": COMMIT_COPIES}
 ABLATE_KERNELS = ("gram_kernel", "ozaki_gemm_kernel", "trsm_kernel", "block_jacobi",
                   "double_layer_kernel", "corner_dmma_kernel", "layer_dmma_kernel",
                   "dmma_gemm_kernel", "polar_kernel", "polar_vjp_kernel", "block_gemm_kernel",
-                  "block_permute_kernel", "split_rows", "split_cols", "t_epilogue_kernel")
+                  "block_permute_kernel", "split_rows", "split_cols", "t_epilogue_kernel",
+                  "ctm_commit_kernel", "frozen_commit_kernel", "epilogue_kernel")
 # the parts of ablate(): the sources each builds, and those of the parent it needs
 ABLATE_GROUPS = {"gram": ("cholqr.cu",), "ozaki": ("ozaki.cu",), "solves": ("cholqr.cu",),
                  "eigh": ("eigh_small.cu",), "fused": ("double_layer.cu", "corner_apply.cu"),
                  "polar": ("polar.cu",), "k8": ("block_sparse.cu",), "split": ("ozaki.cu",),
-                 "epilogue": ("t_epilogue.cu",)}
+                 "epilogue": ("t_epilogue.cu",),
+                 "commit": ("ctm_commit.cu", "frozen_commit.cu", "frozen_generic.cu")}
 # the parent's sources each part times, and the sources linked with each
 # (the parent's polar.cu calls the Gram of its cholqr.cu)
 ABLATE_PARENT = {"solves": ("cholqr.cu",), "fused": ("layer_contract.cu", "corner_apply.cu"),
                  "polar": ("polar.cu",), "k8": ("block_sparse.cu",), "split": ("ozaki.cu",),
-                 "epilogue": ("t_epilogue.cu",)}
+                 "epilogue": ("t_epilogue.cu",), "commit": ("frozen_commit.cu", "frozen_generic.cu")}
 PARENT_LINKED = {"polar.cu": ("cholqr.cu",)}
 
 
@@ -3252,9 +3478,14 @@ def ablate(parent=None, only=None) -> dict:
     (:func:`oz_move_compare`); K4's ``t_epilogue``
     (:func:`ablate_epilogue`, ``epilogue``) at the move's shape in f64 and
     f32, with ``parent`` its ``t_epilogue.cu`` and :func:`move_compare`.
+    K5's ``ctm_commit``, K9's ``frozen_commit`` and K10's
+    ``generic_epilogue`` (:func:`ablate_commit`, ``commit``; the last two
+    also as the launch alone, without the grid barrier and without stores),
+    with ``parent`` the parent's two,
+    :func:`move_compare` and :func:`k8_move_compare`'s frozen move.
     ``only`` names the parts to run (:data:`ABLATE_GROUPS`).  Run by
     ``chip_smoke.py --ablate [--parent DIR]
-    [--only gram,ozaki,solves,eigh,fused,polar,k8,split,epilogue]``."""
+    [--only gram,ozaki,solves,eigh,fused,polar,k8,split,epilogue,commit]``."""
     from tpeps_torch.kernels import build as kb
 
     groups = tuple(ABLATE_GROUPS) if only is None else tuple(only)
@@ -3320,13 +3551,15 @@ def ablate(parent=None, only=None) -> dict:
             rec["ozaki_moves"] = oz_move_compare(parent)
     if "epilogue" in groups:
         rec.update(ablate_epilogue(libs, in_turns, stream, dev, parent))
+    if "commit" in groups:
+        rec.update(ablate_commit(libs, in_turns, stream, dev, parent))
     if "k8" in groups:
         rec.update(ablate_k8(libs, in_turns, stream, dev, parent is not None))
-        if parent is not None:
-            rec["k8_moves"] = k8_move_compare(parent)
+    if parent is not None and {"k8", "commit"} & set(groups):
+        rec["k8_moves"] = k8_move_compare(parent)
     if "polar" in groups:
         rec.update(ablate_polar(libs, in_turns, stream, dev, parent is not None))
-    if parent is not None and {"fused", "polar", "epilogue"} & set(groups):
+    if parent is not None and {"fused", "polar", "epilogue", "commit"} & set(groups):
         rec["move"] = move_compare(parent)
     if "fused" in groups:
         rec.update(ablate_fused(libs, in_turns, stream, dev, parent is not None))
@@ -3456,7 +3689,7 @@ def ablate_epilogue(libs, in_turns, stream, dev, parent) -> dict:
     from tpeps_torch.kernels import barrier_counters, epilogue
 
     gen = torch.Generator(device=dev).manual_seed(7)
-    bar = barrier_counters(dev)
+    bar = barrier_counters(dev, "t_epilogue")
     parent_bar = parent is not None and "unsigned* bar" in (
         Path(parent) / "tpeps_torch" / "csrc" / "t_epilogue.cu").read_text()
     rec = {}
@@ -3501,6 +3734,240 @@ def ablate_epilogue(libs, in_turns, stream, dev, parent) -> dict:
                   + ", ".join(f"{v} {t * 1000:.2f} us" for v, t in ms.items())
                   + f"; bound {bound_ms * 1000:.2f} us"
                   + (", target <= 12 us" if sfx == "f64" else ""), flush=True)
+    return rec
+
+
+def frozen_layout(dev):
+    """Phase 8's frozen-move layout (U(1) D=8, chi=160: AB_WARM_MOVES dynamic
+    moves from the seeded state, frozen and closed): the flat C and T and
+    their transpose-partner tables."""
+    from tpeps_torch.ctm.c4v_abelian import ctmrg as ab_ctmrg
+    from tpeps_torch.ctm.c4v_abelian import frozen as ab_frozen
+    from tpeps_torch.ctm.c4v_abelian.env import init_env as ab_init_env
+
+    st = ab_state(AB_AUX, dev)
+    a = st.site((0, 0))
+    env = ab_init_env(st, AB_CHI)
+    for _ in range(AB_WARM_MOVES):
+        env = ab_ctmrg.ctm_move_sl(a, env, AB_PK)
+    C, T = ab_frozen.close_structure(a, env.C, env.T, dict(ab_frozen.freeze_from_env(env)))
+    return (C.data, T.data, ab_frozen.partner_index(C.struct, ab_frozen.C_PARTNER, dev),
+            ab_frozen.partner_index(T.struct, ab_frozen.T_PARTNER, dev))
+
+
+# K10's timing table: a directional move of the 2-site D=8 chi=160 cell has
+# six outputs and 507,472 entries (phase 10(a)); two corners and an edge a site
+GEN_EPI_SEGMENTS = (3000, 3000, 247736, 3000, 3000, 247736)
+
+
+# a read of this many bytes between two calls leaves none of the first
+# call's data in the H100's 50 MB L2
+L2_FLUSH_BYTES = 256 * 2**20
+
+
+def cold_l2_ms(fn, flush, reps: int = 20) -> float:
+    """Device ms of ``fn`` with the L2 flushed before each call: in CUDA
+    graphs, (a read of ``flush``, then ``fn``) less (the read alone), the
+    smaller of two means each, in the order both, read, read, both.  The
+    writes ``fn`` leaves in L2 are written back during the next read, so
+    they count, as its bound counts them."""
+    sink = torch.empty((), dtype=flush.dtype, device=flush.device)
+    read = lambda: torch.sum(flush, dim=0, out=sink)
+    both = lambda: (read(), fn())
+    t = [graph_ms(f, reps, 5) for f in (both, read, read, both)]
+    return min(t[0], t[3]) - min(t[1], t[2])
+
+
+def ctm_commit_in_move(dev) -> dict:
+    """K5 ``ctm_commit`` inside the graphed f64 move (D=7, chi=147,
+    ``"spec"``, :data:`MOVE_CODE`'s state after eight eager moves; a
+    four-move MoveGraph that never ends), from a torch.profiler trace of five
+    replays: each launch's device time, its inputs made by the move's last
+    kernels and its state by the move before; the graphed moves' device
+    time beside it.  ``ms`` None where the trace holds no kernel of the
+    graph."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpeps_torch.ctm.c4v import move_factored as mf
+    from tpeps_torch.ctm.c4v.env import init_env
+    from tpeps_torch.ctm.c4v.move_graph import CHAIN_CONV_TOL, CHAIN_MAX_ITER, MoveGraph
+    from tpeps_torch.ipeps.ipeps_c4v import symmetrize_c4v
+
+    x = np.random.RandomState(0).rand(2, D, D, D, D) - 0.5
+    a = symmetrize_c4v(torch.as_tensor(x, dtype=torch.float64), normalize=True).to(dev)
+    env = init_env(a, CHI, "CTMRG")
+    C, T, W = env.C, mf.to_int_layout(env.T, D), None
+    P = mf.cold_start_basis(CHI * D * D, CHI, a.dtype, dev)
+    for _ in range(8):
+        C, T, _, P, W = mf.ctm_move_w(a, C, T, P, W)
+    g = MoveGraph(a, CHI, n_moves=4)
+    g.load(a, C, T, P, max_iter=CHAIN_MAX_ITER, conv_tol=CHAIN_CONV_TOL, W=W)
+    g.run()
+    g.run()
+    torch.cuda.synchronize()
+    i0 = int(g.state.ctl[0])
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            g.run()
+        torch.cuda.synchronize()
+    check(int(g.state.ctl[0]) == i0 + 20 and not g.done(),
+          "ctm_commit in the graphed move: the 20 traced moves all committed")
+    cuda = torch.autograd.DeviceType.CUDA
+    spans = [(e.name(), e.start_ns(), e.end_ns())
+             for e in prof.profiler.kineto_results.events() if e.device_type() == cuda]
+    k5 = [(b - a0) / 1e6 for name, a0, b in spans if "ctm_commit_kernel" in name]
+    busy = sum(b - a0 for _, a0, b in spans) / 1e6 / 20
+    out = {"ms": sorted(k5)[len(k5) // 2] if k5 else None, "ms_min": min(k5, default=None),
+           "ms_max": max(k5, default=None), "launches_traced": len(k5),
+           "kernels_traced": len(spans), "move_device_ms_summed": busy}
+    if k5:
+        print(f"  ctm_commit in the graphed f64 move (trace of 20 moves): median "
+              f"{out['ms'] * 1000:.2f} us, {out['ms_min'] * 1000:.2f}-{out['ms_max'] * 1000:.2f} "
+              f"us over {len(k5)} launches; the move's kernels {busy:.3f} ms summed", flush=True)
+    else:
+        print(f"  ctm_commit in the graphed f64 move: not measured (the trace holds "
+              f"{len(spans)} device events, no ctm_commit_kernel)", flush=True)
+    del g
+    return out
+
+
+def ablate_commit(libs, in_turns, stream, dev, parent) -> dict:
+    """:func:`ablate`'s part for the loop-commit kernels, each in CUDA graphs
+    beside its bound: K5's ``ctm_commit`` (D=7, chi=147: f64 and f32,
+    ``conv_on`` "spec" and "env"; also with the L2 flushed before each call,
+    :func:`cold_l2_ms`, and inside the graphed move, :func:`ctm_commit_in_move`), K9's ``frozen_commit`` (phase 8's
+    frozen-move layout, seeded raw values: the work does not depend on them;
+    the calls alternate between two raw buffers, so that every call commits)
+    and K10's ``generic_epilogue`` (:data:`GEN_EPI_SEGMENTS`, f64): the
+    kernels of this checkout and their timing copies (:data:`COMMIT_COPIES`,
+    :data:`FROZEN_COPIES`),
+    and those of the checkout ``parent`` (if not None) first and last in the
+    turns, called with the arguments its own sources declare (its
+    ``frozen_commit`` takes a scratch buffer and no barrier counters, its
+    ``generic_epilogue`` partials where this one takes its counters).  The first call of every library but
+    the timing copies is held to the twin."""
+    from tpeps_torch.kernels import ctm_loop
+    from tpeps_torch.kernels import frozen as kfrozen
+    from tpeps_torch.kernels import frozen_generic as kgen
+
+    gen = torch.Generator(device=dev).manual_seed(17)
+    rec = {}
+    flush = torch.ones(L2_FLUSH_BYTES // 8, dtype=torch.float64, device=dev)
+    checked = lambda key: key in ("parent", 0)  # the timing copies compute nothing right
+    sfx_of = {torch.float64: "f64", torch.float32: "f32"}
+    for dtype, sfx in sfx_of.items():
+        rnd = lambda *sh: torch.randn(*sh, generator=gen, device=dev, dtype=dtype)
+        new = (rnd(CHI, CHI), rnd(D, D, CHI, CHI), rnd(CHI * D * D, CHI), rnd(CHI, CHI))
+        spec2 = rnd(CHI)
+        old = (rnd(CHI, CHI), rnd(D, D, CHI, CHI), rnd(CHI * D * D, CHI))
+        part = torch.empty(4096, dtype=dtype, device=dev)
+        for conv_on in ("spec", "env"):
+            env_flag = int(conv_on == "env")
+            calls = {}
+            for key, label in CTM_COPIES.items():
+                st = ctm_loop.loop_state(*old, 10**9, -1.0)
+                fn = getattr(libs["ctm_commit.cu", key], f"tpeps_ctm_commit_{sfx}")
+
+                def call(fn=fn, st=st):
+                    err = fn(*(x.data_ptr() for x in st), part.data_ptr(),
+                             *(x.data_ptr() for x in (*new, spec2)),
+                             *(x.numel() for x in new), CHI, env_flag, stream())
+                    if err:
+                        fail(f"ctm_commit launch: CUDA error {err}")
+                s1, s2 = ctm_loop.loop_state(*old, 10, -1.0), ctm_loop.loop_state(*old, 10, -1.0)
+                s1.spec.copy_(spec2.abs() * 0.5)
+                s2.spec.copy_(spec2.abs() * 0.5)
+                call(st=s1)
+                ctm_loop.ctm_commit_twin(s2, *new, spec2, conv_on)
+                check(all(torch.equal(x, y) for x, y in zip(s1[:5], s2[:5]))
+                      and rel_err(s1.dist, s2.dist) <= TOL[dtype] and torch.equal(s1.ctl, s2.ctl),
+                      f"ctm_commit {sfx} {conv_on} ({label}): the first call is the twin's")
+                calls[label] = call
+            ms = in_turns(calls, 20, 5)
+            cold = {label: cold_l2_ms(fn, flush) for label, fn in calls.items()}
+            nb = 2 * nbytes(*new, spec2) + (nbytes(*new[:2]) if env_flag else 0)
+            b_ms, _ = bound(nb, 0, FP64_CC)
+            rec[f"ctm_commit {sfx} {conv_on}"] = {"ms": ms, "cold_l2_ms": cold, "bound_ms": b_ms}
+            print(f"  ctm_commit {sfx} {conv_on} (D={D}, chi={CHI}, {nb / 1e6:.1f} MB): "
+                  + ", ".join(f"{v} {t * 1000:.2f} us" for v, t in ms.items())
+                  + "; L2 flushed " + ", ".join(f"{v} {t * 1000:.2f} us" for v, t in cold.items())
+                  + f"; bound {b_ms * 1000:.2f} us", flush=True)
+    del flush
+    rec["ctm_commit in the graphed move"] = ctm_commit_in_move(dev)
+
+    C, T, pC, pT = frozen_layout(dev)
+    nel = C.numel() + T.numel()
+    rnd = lambda n: torch.randn(n, generator=gen, device=dev, dtype=C.dtype)
+    raws = ((rnd(C.numel()), rnd(T.numel())), (rnd(C.numel()), rnd(T.numel())))
+    part = torch.empty(4096, dtype=C.dtype, device=dev)
+    sym = torch.empty(nel, dtype=C.dtype, device=dev)
+    bar = torch.zeros(6, dtype=torch.int32, device=dev)  # K9's counters and maxima
+    parent_sym = parent is not None and "double* sym" in (
+        Path(parent) / "tpeps_torch" / "csrc" / "frozen_commit.cu").read_text()
+    parent_key = [("parent", "parent")] if parent is not None else []
+    calls = {}
+    for key, label in parent_key + list(FROZEN_COPIES.items()):
+        fn = libs["frozen_commit.cu", key].tpeps_frozen_commit_f64
+        scratch = (sym, part) if key == "parent" and parent_sym else (part, bar)
+        turn = itertools.cycle(raws)
+
+        def call(fn=fn, scratch=scratch, turn=turn, st=None):
+            rC, rT = next(turn)
+            err = fn(*(x.data_ptr() for x in st), *(x.data_ptr() for x in scratch),
+                     rC.data_ptr(), rT.data_ptr(), pC.data_ptr(), pT.data_ptr(), rC.numel(),
+                     rT.numel(), stream())
+            if err:
+                fail(f"frozen_commit launch: CUDA error {err}")
+        if checked(key):
+            s1, s2 = kfrozen.frozen_state(C, T, 10, 0.0), kfrozen.frozen_state(C, T, 10, 0.0)
+            call(st=s1, turn=iter(raws[:1]))
+            kfrozen.frozen_commit_twin(s2, *raws[0], pC, pT)
+            check(torch.equal(s1.C, s2.C) and torch.equal(s1.T, s2.T)
+                  and rel_err(s1.dist2, s2.dist2) <= TOL[torch.float64]
+                  and torch.equal(s1.ctl, s2.ctl) and int(bar.abs().sum()) == 0,
+                  f"frozen_commit ({label}): the first call is the twin's; barrier counters "
+                  "left 0")
+        st = kfrozen.frozen_state(C, T, 10**9, 0.0)
+        calls[label] = lambda call=call, st=st: call(st=st)
+    ms = in_turns(calls, 20, 5)
+    b_ms, _ = bound(8 * 4 * nel, 6 * nel, FP64_CC)
+    rec["frozen_commit f64"] = {"ms": ms, "bound_ms": b_ms, "entries": nel}
+    print(f"  frozen_commit f64 (U(1) D=8 chi={AB_CHI} frozen layout, {nel} entries): "
+          + ", ".join(f"{v} {t * 1000:.2f} us" for v, t in ms.items())
+          + f"; bound {b_ms * 1000:.2f} us", flush=True)
+
+    seg = kgen.segment_table([(sum(GEN_EPI_SEGMENTS[:i]), [n]) for i, n in
+                              enumerate(GEN_EPI_SEGMENTS)], dev)
+    raw = torch.randn(seg.numel, generator=gen, device=dev, dtype=torch.float64)
+    env_k, env_t = torch.zeros_like(raw), torch.zeros_like(raw)
+    kgen.generic_epilogue_twin(raw, seg, env_t)
+    # K10's counters and per-segment maxima; the parent's kernel takes partials there
+    gbar = torch.zeros(4 + 2 * 64, dtype=torch.int32, device=dev)
+    parent_part = parent is not None and "unsigned* bar" not in (
+        Path(parent) / "tpeps_torch" / "csrc" / "frozen_generic.cu").read_text()
+    calls = {}
+    for key, label in parent_key + list(COMMIT_COPIES.items()):
+        fn = libs["frozen_generic.cu", key].tpeps_generic_epilogue_f64
+        scratch = part if key == "parent" and parent_part else gbar
+
+        def call(fn=fn, scratch=scratch):
+            err = fn(raw.data_ptr(), seg.seg.data_ptr(), len(seg.host), scratch.data_ptr(),
+                     env_k.data_ptr(), stream())
+            if err:
+                fail(f"generic_epilogue launch: CUDA error {err}")
+        if checked(key):
+            env_k.fill_(math.nan)
+            call()
+            check(torch.equal(env_k, env_t) and int(gbar.abs().sum()) == 0,
+                  f"generic_epilogue ({label}): the first call is the twin's, bit for bit; "
+                  "barrier counters left 0")
+        calls[label] = call
+    ms = in_turns(calls, 20, 5)
+    b_ms, _ = bound(2 * nbytes(raw), raw.numel(), FP64_CC)
+    rec["generic_epilogue f64"] = {"ms": ms, "bound_ms": b_ms, "segments": GEN_EPI_SEGMENTS}
+    print(f"  generic_epilogue f64 ({len(GEN_EPI_SEGMENTS)} segments, {raw.numel()} entries): "
+          + ", ".join(f"{v} {t * 1000:.2f} us" for v, t in ms.items())
+          + f"; bound {b_ms * 1000:.2f} us", flush=True)
     return rec
 
 
@@ -4250,8 +4717,12 @@ def move_compare(parent) -> dict:
 
 
 def main() -> None:
-    def lap(n):  # the script's seconds so far, at the end of phase n
-        print(f"  phase {n} ended at {time.perf_counter() - T_START:.1f} s", flush=True)
+    laps = [0.0]
+
+    def lap(n):  # the script's seconds so far, at the end of phase n, and the phase's own
+        now = time.perf_counter() - T_START
+        print(f"  phase {n} ended at {now:.1f} s, took {now - laps[-1]:.1f} s", flush=True)
+        laps.append(now)
 
     smi = phase0()
     dev = torch.device("cuda", 0)
@@ -4261,6 +4732,7 @@ def main() -> None:
     rec.update(phase2_large_d(dev))
     lap(2)
     counts_fwd = phase3(dev)
+    lap(3)
     phase4(dev)
     lap(4)
     counts_train = phase5(dev)

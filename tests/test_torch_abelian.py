@@ -15,6 +15,7 @@ point's energy 1e-10.  JAX's frozen program is compiled once for the module
 distance).
 """
 
+import functools
 import importlib.util
 import sys
 from pathlib import Path
@@ -225,6 +226,166 @@ def test_frozen_commit_twin_matches_jax_loop_body(frozen_runs):
     tC = type(C)._flat(C, C.struct, st.C)
     tT = type(T)._flat(T, T.struct, st.T)
     assert max_diff(jC1, tC) < 1e-15 and max_diff(jT1, tT) < 1e-15
+
+
+def _exact_commit_case(max_iter=10, conv_tol=0.5):
+    """A 2x2 C block (partners transposed) and three T entries, the first
+    with no partner (-1: its block absent); the symmetrized, scaled values
+    are exact: C' = [0.5, 0.25, 0.25, -1], T' = [0.5, 1, 1].  The committed
+    C differs from C' by 0.5 in one entry, so dist2 = 0.25 exactly."""
+    f = lambda *v: torch.tensor(v, dtype=torch.float64)
+    rawC, pC = f(2.0, 1.0, 1.0, -4.0), torch.tensor([0, 2, 1, 3])
+    rawT, pT = f(2.0, 3.0, 1.0), torch.tensor([-1, 2, 1])
+    st = frozen_state(f(0.5, 0.25, 0.25, -0.5), f(0.5, 1.0, 1.0), max_iter, conv_tol)
+    return st, (rawC, rawT, pC, pT)
+
+
+def test_frozen_commit_twin_partnerless_entries_and_exact_values():
+    st, raw = _exact_commit_case()
+    frozen_commit_twin(st, *raw)
+    assert st.C.tolist() == [0.5, 0.25, 0.25, -1.0] and st.T.tolist() == [0.5, 1.0, 1.0]
+    assert float(st.dist2) == 0.25
+
+
+@pytest.mark.parametrize("conv_tol,done", [(0.5, 1), (0.4999999, 0)],
+                         ids=["dist2_at_tol2", "dist2_above_tol2"])
+def test_frozen_commit_twin_dist2_at_conv_tol_squared(conv_tol, done):
+    """dist2 exactly at conv_tol^2 ends the loop (the test is dist2 > tol^2)."""
+    st, raw = _exact_commit_case(conv_tol=conv_tol)
+    frozen_commit_twin(st, *raw)
+    assert st.ctl[:2].tolist() == [1, done]
+
+
+def test_frozen_commit_twin_max_iter_reached():
+    st, raw = _exact_commit_case(max_iter=2, conv_tol=0.0)
+    st.ctl[0] = 1
+    frozen_commit_twin(st, *raw)
+    assert st.ctl[:2].tolist() == [2, 1] and st.C.tolist() == [0.5, 0.25, 0.25, -1.0]
+
+
+def test_frozen_commit_twin_done_leaves_the_state():
+    st, raw = _exact_commit_case(conv_tol=0.0)
+    st.ctl[1] = 1
+    before = [x.clone() for x in st]
+    frozen_commit_twin(st, *raw)
+    for x, y in zip(st, before):
+        assert torch.equal(x, y)
+
+
+def _block_reduce(vals, op):
+    """``block_reduce2`` of ``csrc/frozen_commit.cu`` over a block's
+    per-thread values (a multiple of 32): an xor butterfly in each warp, lane
+    0's result, then the warps in order."""
+    out = None
+    for w in range(0, len(vals), 32):
+        buf = list(vals[w:w + 32])
+        for o in (16, 8, 4, 2, 1):
+            buf = [op(buf[i], buf[i ^ o]) for i in range(32)]
+        out = buf[0] if out is None else op(out, buf[0])
+    return out
+
+
+def _frozen_commit_partition(state, rawC, rawT, pC, pT, grid, nt=64, keep=8):
+    """A plain-torch model of how ``csrc/frozen_commit.cu`` splits the work,
+    in place on ``state``: C and T one index space, thread ``tid`` of
+    ``grid`` x ``nt`` taking every stride-th element, its first ``keep``
+    symmetrized values and their committed ones kept and the rest read again
+    after the barrier; per-block maxima met order-free (the kernel's atomic
+    max on |x|'s bits), the product with 1 / max, per-block dist2 partials
+    and the last block's sum in the kernel's order.  It checks the index
+    coverage and the orders of the split, not the kernel, which runs only on
+    the card (chip_smoke.py's frozen_commit_checks hold it to the twin there).
+    Returns the times each element was committed."""
+    C, T, dist2, conv_tol, ctl = state
+    if int(ctl[1]):
+        return None
+    nC, n = rawC.numel(), rawC.numel() + rawT.numel()
+    stride, zero = grid * nt, torch.zeros((), dtype=C.dtype)
+
+    def sym(e):
+        raw, p, i = (rawC, pC, e) if e < nC else (rawT, pT, e - nC)
+        q = int(p[i])
+        return 0.5 * (raw[i] + (raw[q] if q >= 0 else zero))
+
+    kept, mC, mT = {}, [], []
+    for b in range(grid):
+        tC, tT = [], []
+        for t in range(nt):
+            tid, aC, aT = b * nt + t, zero, zero
+            for r, e in enumerate(range(tid, n, stride)):
+                v = sym(e)
+                if r < keep:  # the value and the committed one, before the barrier
+                    kept[e] = (v, C[e].clone() if e < nC else T[e - nC].clone())
+                aC, aT = (torch.fmax(aC, v.abs()), aT) if e < nC else (aC, torch.fmax(aT, v.abs()))
+            tC.append(aC)
+            tT.append(aT)
+        mC.append(_block_reduce(tC, torch.fmax))
+        mT.append(_block_reduce(tT, torch.fmax))
+
+    def last_block(parts, op, init):  # thread i % nt sums parts i, then the block
+        acc = [init] * nt
+        for i, p in enumerate(parts):
+            acc[i % nt] = op(acc[i % nt], p)
+        return _block_reduce(acc, op)
+
+    # the blocks' maxima in arrival order, which the kernel does not fix:
+    # here the reverse of the block order
+    iC = 1.0 / functools.reduce(torch.fmax, mC[::-1], zero)
+    iT = 1.0 / functools.reduce(torch.fmax, mT[::-1], zero)
+    hits, part_d = torch.zeros(n, dtype=torch.int64), []
+    for b in range(grid):
+        ds = []
+        for t in range(nt):
+            d = zero
+            for e in range(b * nt + t, n, stride):
+                dst, i, inv = (C, e, iC) if e < nC else (T, e - nC, iT)
+                v, old = kept[e] if e in kept else (sym(e), dst[i])
+                v = v * inv
+                x = v - old
+                d = d + x * x
+                dst[i] = v
+                hits[e] += 1
+            ds.append(d)
+        part_d.append(_block_reduce(ds, torch.add))
+    s = last_block(part_d, torch.add, zero)
+    dist2.fill_(s)
+    it = int(ctl[0]) + 1
+    ctl[0] = it
+    ctl[1] = int(not (it < int(ctl[3]) and float(s) > float(conv_tol) ** 2))
+    return hits
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("keep", [2, 8], ids=["past_keep", "all_kept"])
+@pytest.mark.parametrize("ties", [False, True], ids=["random", "max_ties"])
+def test_frozen_commit_partition_is_the_twin(dtype, keep, ties):
+    """The kernel's partition on a chi=9, D=3 frozen layout (C a 9 x 9 block,
+    81 entries; T a (9, 3, 3, 9) block, 729, its first 81 entries without a
+    partner), 3 blocks of 64 threads (two warps): with 2 values kept a
+    thread most are symmetrized again after the barrier, with 8 all are
+    kept; with ties, the largest magnitude appears many times, in both
+    signs.  Every element committed once, C and T bit-identical to the
+    twin, (i, done) equal, dist2 to 1e-12 (f64) or 1e-5 (f32) relative
+    (summation order)."""
+    rng = np.random.RandomState(5)
+    t = lambda n: torch.from_numpy(rng.rand(n) - 0.5).to(dtype)
+    rawC, rawT = t(81), t(729)
+    if ties:
+        rawC[::7] = 3.0
+        rawT[5::11] = -3.0
+    pC = torch.arange(81).view(9, 9).T.reshape(-1)
+    pT = torch.arange(729).view(9, 3, 3, 9).permute(3, 1, 2, 0).reshape(-1).clone()
+    pT[:81] = -1
+    st_m, st_t = (frozen_state(t(81), t(729), 10, 0.0) for _ in range(2))
+    st_t.C.copy_(st_m.C)
+    st_t.T.copy_(st_m.T)
+    hits = _frozen_commit_partition(st_m, rawC, rawT, pC, pT, grid=3, keep=keep)
+    frozen_commit_twin(st_t, rawC, rawT, pC, pT)
+    assert bool((hits == 1).all())
+    assert torch.equal(st_m.C, st_t.C) and torch.equal(st_m.T, st_t.T)
+    assert st_m.ctl[:2].tolist() == st_t.ctl[:2].tolist() == [1, 0]
+    tol = 1e-12 if dtype == torch.float64 else 1e-5
+    assert abs(float(st_m.dist2) - float(st_t.dist2)) <= tol * float(st_t.dist2)
 
 
 def test_converge_frozen_forward_only(frozen_runs):

@@ -331,6 +331,72 @@ def _table(tensors, offsets):
     return kgen.segment_table([(o, port(t).struct.sizes) for t, o in zip(tensors, offsets)], CPU)
 
 
+def _generic_epilogue_partition(raw, seg, env, grid, nt=64, keep=8):
+    """A plain-torch model of how ``csrc/frozen_generic.cu``'s
+    ``epilogue_kernel`` splits the work, in place on ``env``: the segments
+    one index space, thread ``tid`` of ``grid`` x ``nt`` taking every
+    stride-th element, its first ``keep`` kept across the barrier and the
+    rest read again; per block and segment the max of |x| (order-free, as
+    the kernel's atomic max on |x|'s bits: a NaN is the largest), the
+    product with 1 / max.  It checks the index coverage of the split, not
+    the kernel, which runs only on the card (chip_smoke.py's phase 10(a)
+    holds it to the twin there).  Returns the times each raw element was
+    written."""
+    host = seg.host.tolist()
+    beg = np.concatenate([[0], np.cumsum([r[2] for r in host])])
+    n, stride = int(beg[-1]), grid * nt
+    where = lambda e: int(np.searchsorted(beg, e, side="right") - 1)
+    zero = torch.zeros((), dtype=raw.dtype)
+    parts, kept = [], {}
+    for b in range(grid):
+        smax = [zero] * len(host)
+        for t in range(nt):
+            for r, e in enumerate(range(b * nt + t, n, stride)):
+                q = where(e)
+                x = raw[host[q][0] + e - int(beg[q])]
+                if r < keep:
+                    kept[e] = x
+                smax[q] = torch.maximum(smax[q], x.abs())
+        parts.append(smax)
+    inv = []
+    for q in range(len(host)):
+        m = zero
+        for p in parts:
+            m = torch.maximum(m, p[q])
+        inv.append(1.0 / m)
+    hits = torch.zeros(n, dtype=torch.int64)
+    for e in range(n):
+        q = where(e)
+        x = kept[e] if e in kept else raw[host[q][0] + e - int(beg[q])]
+        env[host[q][1] + e - int(beg[q])] = x * inv[q]
+        hits[e] += 1
+    return hits
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("keep", [1, 8], ids=["past_keep", "all_kept"])
+@pytest.mark.parametrize("nan", [False, True], ids=["finite", "nan_in_one_output"])
+def test_generic_epilogue_partition_is_the_twin(dtype, keep, nan):
+    """The kernel's partition on six outputs of odd lengths (81, 729, 5, 81,
+    729, 13; blocks of several sizes) written to env slots in another order,
+    3 blocks of 64 threads: every element written once, the env bit for bit
+    the twin's; a NaN in one output makes that output NaN in both."""
+    lens = ((81,), (700, 29), (5,), (40, 41), (729,), (13,))
+    sizes = [sum(x) for x in lens]
+    dst = np.cumsum([0] + sizes[::-1])[:-1][::-1]  # the slots in reverse order
+    seg = kgen.segment_table([(int(d), list(b)) for d, b in zip(dst, lens)], CPU)
+    raw = torch.from_numpy(np.random.RandomState(4).rand(seg.numel) - 0.5).to(dtype)
+    if nan:
+        raw[81 + 300] = float("nan")
+    env_m, env_t = torch.zeros_like(raw), torch.zeros_like(raw)
+    hits = _generic_epilogue_partition(raw, seg, env_m, grid=3, keep=keep)
+    kgen.generic_epilogue_twin(raw, seg, env_t)
+    assert bool((hits == 1).all())
+    assert torch.equal(env_m.isnan(), env_t.isnan())
+    assert torch.equal(env_m.nan_to_num(7.0), env_t.nan_to_num(7.0))
+    assert int(env_t.isnan().sum()) == (729 if nan else 0)
+
+
 def test_generic_epilogue_and_sweep_commit_twins_match_jax():
     """``generic_epilogue``'s twin against the JAX package's ``_normalized``
     per output (written into its env slot), bit-exact; ``sweep_commit``'s twin

@@ -57,6 +57,15 @@ __device__ T block_reduce(T v, bool is_max, T* buf) {
   return r;
 }
 
+// -DTPEPS_CTM_VEC=1: a timing copy (chip_smoke.py --ablate --only commit)
+// that copies in 16-byte vectors, UNROLL loads in flight a thread; not the
+// kernel's copy: it was no faster in "spec" mode, in graphs or with the L2
+// flushed
+#ifndef TPEPS_CTM_VEC
+#define TPEPS_CTM_VEC 0
+#endif
+
+#if !TPEPS_CTM_VEC
 template <typename T>
 __device__ T copy_diff(T* __restrict__ dst, const T* __restrict__ src, int64_t n, bool diff) {
   T acc = T(0);
@@ -68,6 +77,69 @@ __device__ T copy_diff(T* __restrict__ dst, const T* __restrict__ src, int64_t n
   }
   return acc;
 }
+#else
+template <typename T> struct Vec16;
+template <> struct Vec16<double> { using V = double2; static constexpr int L = 2; };
+template <> struct Vec16<float> { using V = float4; static constexpr int L = 4; };
+
+template <typename T>
+__device__ __forceinline__ T vec_diff(T acc, const double2& a, const double2& b) {
+  return nanmax(nanmax(acc, T(fabs(a.x - b.x))), T(fabs(a.y - b.y)));
+}
+template <typename T>
+__device__ __forceinline__ T vec_diff(T acc, const float4& a, const float4& b) {
+  acc = nanmax(nanmax(acc, T(fabsf(a.x - b.x))), T(fabsf(a.y - b.y)));
+  return nanmax(nanmax(acc, T(fabsf(a.z - b.z))), T(fabsf(a.w - b.w)));
+}
+
+constexpr int UNROLL = 4;
+
+// scalar until dst is 16-byte aligned, then 16-byte vectors (UNROLL loads a
+// thread sent together, the old values beside them for "env"), then a
+// scalar tail; all scalar where src is not aligned with dst
+template <typename T>
+__device__ T copy_diff(T* __restrict__ dst, const T* __restrict__ src, int64_t n, bool diff) {
+  using V = typename Vec16<T>::V;
+  constexpr int L = Vec16<T>::L;
+  const int64_t stride = static_cast<int64_t>(GRID) * NT;
+  const int64_t tid = static_cast<int64_t>(blockIdx.x) * NT + threadIdx.x;
+  const uintptr_t ad = reinterpret_cast<uintptr_t>(dst), as = reinterpret_cast<uintptr_t>(src);
+  int64_t head = ((16 - (ad & 15)) & 15) / sizeof(T);
+  if (((ad - as) & 15) != 0 || head > n) head = n;
+  const int64_t nv = (n - head) / L;
+  T acc = T(0);
+  for (int64_t e = tid; e < head; e += stride) {
+    const T v = src[e];
+    if (diff) acc = nanmax(acc, fabs(v - dst[e]));
+    dst[e] = v;
+  }
+  const V* __restrict__ vs = reinterpret_cast<const V*>(src + head);
+  V* __restrict__ vd = reinterpret_cast<V*>(dst + head);
+  for (int64_t b = tid; b < nv; b += UNROLL * stride) {
+    V v[UNROLL], o[UNROLL];
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u)
+      if (b + u * stride < nv) v[u] = vs[b + u * stride];
+    if (diff) {
+#pragma unroll
+      for (int u = 0; u < UNROLL; ++u)
+        if (b + u * stride < nv) o[u] = vd[b + u * stride];
+    }
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u)
+      if (b + u * stride < nv) {
+        if (diff) acc = vec_diff<T>(acc, v[u], o[u]);
+        vd[b + u * stride] = v[u];
+      }
+  }
+  for (int64_t e = head + nv * L + tid; e < n; e += stride) {
+    const T v = src[e];
+    if (diff) acc = nanmax(acc, fabs(v - dst[e]));
+    dst[e] = v;
+  }
+  return acc;
+}
+#endif
 
 template <typename T>
 __global__ void __launch_bounds__(NT)

@@ -14,15 +14,33 @@
 // counter, max_iter].  If done is set the launch returns and the state is
 // untouched.
 //
-// What bounds it on an H100: a few reads and writes of C and T (~250k
-// elements at D=8, chi=160): microseconds, latency rather than bandwidth.
+// What bounds it on an H100: per element a read of raw and of its partner
+// index, a read and a write of the committed value (the partner's raw value
+// is an element of the same raw buffer, read once): 32 bytes (7.6 MB, 2.3 us
+// at D=8, chi=160, 237,601 elements), behind two reductions over the grid:
+// latency rather than bandwidth.
 //
-// Design: every block symmetrizes its grid-stride share into a scratch
-// buffer and writes its partial maxima; the last block to arrive (a counter
-// in ctl, reset by that block) reduces the partials in a fixed order, then
-// alone scales, forms dist2 and commits.  The scale is applied as a product
-// with 1 / max, as the JAX code does, so C and T are bit-identical to the
-// plain twin's; dist2 differs from it only in summation order.
+// Design: one cooperative launch of a grid that is resident at once (one
+// block of FC_NT = 512 threads an SM).  C and T are one index space of nC +
+// nT elements; a thread takes every gridDim x FC_NT-th.  (1) Each thread
+// symmetrizes its elements, keeps the first KEEP of them in registers with
+// their committed values (all loaded at once, beside the done flag, which
+// is tested before any write) and folds all into its maxima of |C| and |T|;
+// each block adds its two maxima to two global ones (an atomic max on |x|'s
+// bits, which order like the values: no order to fix).  (2) A grid barrier
+// on two counters of the kernel's own.  (3) Every block reads the two
+// maxima once and scales its elements by the product with 1 / max (as the
+// JAX code does: C and T bit-identical to the plain twin's), forms its
+// partial dist2 against the committed values and commits them; elements
+// past KEEP a thread are symmetrized again from raw (the same arithmetic,
+// the same bits).  (4) The last block to arrive (a counter in ctl, reset by
+// that block) sums the dist2 partials in block order, writes dist2, i and
+// done, and zeroes the two maxima (every block has read them by then): the
+// counters and maxima are left zero.  Every block reads done before the
+// barrier, and only the last to arrive writes it, after every block has
+// passed the barrier.  Block reductions are warp shuffles (an xor
+// butterfly) and then the warps in order: a fixed order.  dist2 differs
+// from the twin's only in summation order.
 //
 // Two kernels of the implicit adjoint of converge_frozen (the backward of
 // tpeps/ctm/c4v_abelian/frozen.py:_make_converge_frozen, :160-233) live here
@@ -54,10 +72,23 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "coop.cuh"
+
+// frozen_commit's timing copies (results wrong; timing only): 1 no work
+// after the done read, 2 no grid barrier, 4 no commit stores, 8 no last
+// block's sum, 16 no partner gather
+#ifndef TPEPS_ABLATE
+#define TPEPS_ABLATE 0
+#endif
+
 namespace {
 
 constexpr int NT = 256;
-constexpr int GRID = 264;
+constexpr int GRID = 264;  // frozen_epilogue_vjp's and adjoint_commit's grid
+// frozen_commit: threads a block, blocks an SM at most (512 x 1 measured
+// faster than 256 x 1, 2 or 4), values a thread keeps across the barrier,
+// grid at most (its dist2 partials)
+constexpr int FC_NT = 512, FC_BLOCKS_PER_SM = 1, KEEP = 8, FC_MAX_GRID = 1024;
 
 template <typename T>
 __device__ T block_reduce(T v, bool is_max, T* buf) {
@@ -75,82 +106,32 @@ __device__ T block_reduce(T v, bool is_max, T* buf) {
   return r;
 }
 
-template <typename T>
-__device__ T symmetrize(T* __restrict__ sym, const T* __restrict__ raw,
-                        const int64_t* __restrict__ partner, int64_t n) {
-  T m = T(0);
-  const int64_t stride = static_cast<int64_t>(GRID) * NT;
-  for (int64_t e = static_cast<int64_t>(blockIdx.x) * NT + threadIdx.x; e < n; e += stride) {
-    const int64_t p = partner[e];
-    const T v = T(0.5) * (raw[e] + (p >= 0 ? raw[p] : T(0)));
-    sym[e] = v;
-    m = fmax(m, fabs(v));
+// frozen_commit's block reductions of two values at once, in a fixed order:
+// an xor butterfly in each warp (every lane ends with the same bits), then
+// the warps in order; two barriers.  buf: 2 * FC_NT / 32 values.
+template <typename T, bool MAX>
+__device__ __forceinline__ void block_reduce2(T& a, T& b, T* buf) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    const T x = __shfl_xor_sync(0xffffffffu, a, o), y = __shfl_xor_sync(0xffffffffu, b, o);
+    a = MAX ? fmax(a, x) : a + x;
+    b = MAX ? fmax(b, y) : b + y;
   }
-  return m;
-}
-
-template <typename T>
-__device__ T scale_commit(T* __restrict__ dst, const T* __restrict__ sym, T inv, int64_t n) {
-  T d = T(0);
-  for (int64_t e = threadIdx.x; e < n; e += NT) {
-    const T v = __ldcg(sym + e) * inv;
-    const T x = v - dst[e];
-    d += x * x;
-    dst[e] = v;
-  }
-  return d;
-}
-
-template <typename T>
-__global__ void __launch_bounds__(NT)
-frozen_commit_kernel(T* __restrict__ C, T* __restrict__ Tt, T* __restrict__ dist2,
-                     const double* __restrict__ conv_tol, int* __restrict__ ctl,
-                     T* __restrict__ sym, T* __restrict__ part, const T* __restrict__ rawC,
-                     const T* __restrict__ rawT, const int64_t* __restrict__ pC,
-                     const int64_t* __restrict__ pT, int64_t nC, int64_t nT) {
-  __shared__ T buf[NT];
-  __shared__ int last;
-  if (ctl[1]) return;  // the loop has ended
-  const T mC = block_reduce(symmetrize(sym, rawC, pC, nC), true, buf);
-  const T mT = block_reduce(symmetrize(sym + nC, rawT, pT, nT), true, buf);
-  if (threadIdx.x == 0) {
-    part[blockIdx.x] = mC;
-    part[GRID + blockIdx.x] = mT;
-    __threadfence();
-    last = atomicAdd(&ctl[2], 1) == GRID - 1;
+  constexpr int NW = FC_NT / 32;
+  if ((threadIdx.x & 31) == 0) {
+    buf[threadIdx.x >> 5] = a;
+    buf[NW + (threadIdx.x >> 5)] = b;
   }
   __syncthreads();
-  if (!last) return;
-  __threadfence();
-  T sC = T(0), sT = T(0);
-  for (int b = threadIdx.x; b < GRID; b += NT) {
-    sC = fmax(sC, __ldcg(part + b));
-    sT = fmax(sT, __ldcg(part + GRID + b));
+  a = buf[0];
+  b = buf[NW];
+#pragma unroll
+  for (int w = 1; w < NW; ++w) {
+    a = MAX ? fmax(a, buf[w]) : a + buf[w];
+    b = MAX ? fmax(b, buf[NW + w]) : b + buf[NW + w];
   }
-  sC = block_reduce(sC, true, buf);
-  sT = block_reduce(sT, true, buf);
-  T d = scale_commit(C, sym, T(1) / sC, nC) + scale_commit(Tt, sym + nC, T(1) / sT, nT);
-  d = block_reduce(d, false, buf);
-  if (threadIdx.x == 0) {
-    dist2[0] = d;
-    const int it = ctl[0] + 1;
-    ctl[0] = it;
-    const double tol = conv_tol[0];
-    ctl[1] = (it < ctl[3] && static_cast<double>(d) > tol * tol) ? 0 : 1;
-    ctl[2] = 0;
-  }
+  __syncthreads();
 }
-
-template <typename T>
-int launch(T* C, T* Tt, T* dist2, const double* conv_tol, int* ctl, T* sym, T* part,
-           const T* rawC, const T* rawT, const int64_t* pC, const int64_t* pT, int64_t nC,
-           int64_t nT, cudaStream_t stream) {
-  frozen_commit_kernel<T><<<GRID, NT, 0, stream>>>(C, Tt, dist2, conv_tol, ctl, sym, part, rawC,
-                                                   rawT, pC, pT, nC, nT);
-  return cudaGetLastError();
-}
-
-// ---- frozen_epilogue_vjp ---------------------------------------------------
 
 template <typename T>
 __device__ __forceinline__ T sym_at(const T* __restrict__ raw, const int64_t* __restrict__ partner,
@@ -158,6 +139,121 @@ __device__ __forceinline__ T sym_at(const T* __restrict__ raw, const int64_t* __
   const int64_t p = partner[e];
   return T(0.5) * (raw[e] + (p >= 0 ? raw[p] : T(0)));
 }
+
+template <typename T>
+__global__ void __launch_bounds__(FC_NT)
+frozen_commit_kernel(T* __restrict__ C, T* __restrict__ Tt, T* __restrict__ dist2,
+                     const double* __restrict__ conv_tol, int* __restrict__ ctl,
+                     T* __restrict__ part, unsigned* __restrict__ bar,
+                     const T* __restrict__ rawC, const T* __restrict__ rawT,
+                     const int64_t* __restrict__ pC, const int64_t* __restrict__ pT, int64_t nC,
+                     int64_t nT) {
+  __shared__ T buf[2 * FC_NT / 32];
+  __shared__ unsigned long long s_g[2];
+  __shared__ int last;
+  // done (read by every block before the barrier, written after it by the
+  // last block): loaded beside the first raw values, tested before any write
+  const int done = ctl[1];
+  if (TPEPS_ABLATE & 1) return;
+  const int grid = static_cast<int>(gridDim.x);
+  const int64_t n = nC + nT, stride = static_cast<int64_t>(grid) * FC_NT;
+  const int64_t tid = static_cast<int64_t>(blockIdx.x) * FC_NT + threadIdx.x;
+  // (1) symmetrize; the first KEEP values and their committed ones stay in
+  // registers
+  T v[KEEP], old[KEEP];
+  T mC = T(0), mT = T(0);
+#pragma unroll
+  for (int r = 0; r < KEEP; ++r) {
+    const int64_t e = tid + r * stride;
+    v[r] = old[r] = T(0);
+    if (e < nC) {
+      v[r] = (TPEPS_ABLATE & 16) ? rawC[e] : sym_at(rawC, pC, e);
+      old[r] = C[e];
+      mC = fmax(mC, fabs(v[r]));
+    } else if (e < n) {
+      v[r] = (TPEPS_ABLATE & 16) ? rawT[e - nC] : sym_at(rawT, pT, e - nC);
+      old[r] = Tt[e - nC];
+      mT = fmax(mT, fabs(v[r]));
+    }
+  }
+  for (int64_t e = tid + KEEP * stride; e < n; e += stride) {
+    if (e < nC) mC = fmax(mC, fabs(sym_at(rawC, pC, e)));
+    else mT = fmax(mT, fabs(sym_at(rawT, pT, e - nC)));
+  }
+  if (done) return;  // the loop has ended: the state stays untouched
+  block_reduce2<T, true>(mC, mT, buf);
+  unsigned long long* gmax = reinterpret_cast<unsigned long long*>(bar + 2);
+  if (threadIdx.x == 0) {
+    atomicMax(gmax, abs_bits(mC));
+    atomicMax(gmax + 1, abs_bits(mT));
+  }
+  // (2)
+  if (!(TPEPS_ABLATE & 2)) grid_barrier(bar);
+  // (3) the same maxima in every block (read once a block), then scale,
+  // distance and commit
+  if (threadIdx.x < 2) s_g[threadIdx.x] = __ldcg(gmax + threadIdx.x);
+  __syncthreads();
+  const T iC = T(1) / from_bits<T>(s_g[0]), iT = T(1) / from_bits<T>(s_g[1]);
+  T d = T(0);
+#pragma unroll
+  for (int r = 0; r < KEEP; ++r) {
+    const int64_t e = tid + r * stride;
+    if (e < n) {
+      const T w = v[r] * (e < nC ? iC : iT), x = w - old[r];
+      d += x * x;
+      if (!(TPEPS_ABLATE & 4)) *(e < nC ? C + e : Tt + (e - nC)) = w;
+    }
+  }
+  for (int64_t e = tid + KEEP * stride; e < n; e += stride) {
+    T* dst = e < nC ? C + e : Tt + (e - nC);
+    const T w = (e < nC ? sym_at(rawC, pC, e) : sym_at(rawT, pT, e - nC)) * (e < nC ? iC : iT);
+    const T x = w - *dst;
+    d += x * x;
+    if (!(TPEPS_ABLATE & 4)) *dst = w;
+  }
+  T unused = T(0);
+  block_reduce2<T, false>(d, unused, buf);
+  // (4)
+  if (threadIdx.x == 0) {
+    part[blockIdx.x] = d;
+    __threadfence();
+    last = atomicAdd(&ctl[2], 1) == grid - 1;
+  }
+  __syncthreads();
+  if (!last || (TPEPS_ABLATE & 8)) return;
+  __threadfence();
+  T s = T(0);
+  for (int b = threadIdx.x; b < grid; b += FC_NT) s += __ldcg(part + b);
+  block_reduce2<T, false>(s, unused, buf);
+  if (threadIdx.x == 0) {
+    dist2[0] = s;
+    const int it = ctl[0] + 1;
+    ctl[0] = it;
+    const double tol = conv_tol[0];
+    ctl[1] = (it < ctl[3] && static_cast<double>(s) > tol * tol) ? 0 : 1;
+    ctl[2] = 0;
+    gmax[0] = gmax[1] = 0ull;  // every block read them before it added its dist2
+  }
+}
+
+template <typename T>
+int launch(T* C, T* Tt, T* dist2, const double* conv_tol, int* ctl, T* part, unsigned* bar,
+           const T* rawC, const T* rawT, const int64_t* pC, const int64_t* pT, int64_t nC,
+           int64_t nT, cudaStream_t stream) {
+  static int grid = 0;
+  cudaError_t e = cudaSuccess;
+  if (grid == 0)
+    e = coop_grid(frozen_commit_kernel<T>, FC_NT, FC_BLOCKS_PER_SM, FC_MAX_GRID, grid);
+  if (e != cudaSuccess) return e;
+  void* args[] = {&C, &Tt, &dist2, &conv_tol, &ctl, &part, &bar, &rawC, &rawT, &pC, &pT, &nC,
+                  &nT};
+  e = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(frozen_commit_kernel<T>),
+                                  dim3(grid), dim3(FC_NT), args, 0, stream);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
+}
+
+// ---- frozen_epilogue_vjp ---------------------------------------------------
 
 // per block of the grid, the partial max of |z| and the partial sum g.z of
 // one tensor: out[b] and out[GRID + b]
@@ -335,7 +431,7 @@ adjoint_commit_kernel(T* __restrict__ da, const T* __restrict__ dai, int64_t na,
 
 extern "C" {
 
-int tpeps_frozen_commit_partials(void) { return 2 * GRID; }
+int tpeps_frozen_commit_partials(void) { return FC_MAX_GRID; }
 
 int tpeps_frozen_epilogue_vjp_partials(void) { return 4 * GRID; }
 
@@ -377,19 +473,23 @@ int tpeps_adjoint_commit_f32(float* da, const float* dai, int64_t na, const floa
   return cudaGetLastError();
 }
 
+// bar: two unsigned counters and two 64-bit maxima (8-byte aligned at bar +
+// 2), zero before the call and zero after it
+int tpeps_frozen_commit_bar_words(void) { return 6; }
+
 int tpeps_frozen_commit_f64(double* C, double* Tt, double* dist2, const double* conv_tol,
-                            int* ctl, double* sym, double* part, const double* rawC,
+                            int* ctl, double* part, unsigned* bar, const double* rawC,
                             const double* rawT, const int64_t* pC, const int64_t* pT,
                             int64_t nC, int64_t nT, void* stream) {
-  return launch<double>(C, Tt, dist2, conv_tol, ctl, sym, part, rawC, rawT, pC, pT, nC, nT,
+  return launch<double>(C, Tt, dist2, conv_tol, ctl, part, bar, rawC, rawT, pC, pT, nC, nT,
                         static_cast<cudaStream_t>(stream));
 }
 
 int tpeps_frozen_commit_f32(float* C, float* Tt, float* dist2, const double* conv_tol, int* ctl,
-                            float* sym, float* part, const float* rawC, const float* rawT,
+                            float* part, unsigned* bar, const float* rawC, const float* rawT,
                             const int64_t* pC, const int64_t* pT, int64_t nC, int64_t nT,
                             void* stream) {
-  return launch<float>(C, Tt, dist2, conv_tol, ctl, sym, part, rawC, rawT, pC, pT, nC, nT,
+  return launch<float>(C, Tt, dist2, conv_tol, ctl, part, bar, rawC, rawT, pC, pT, nC, nT,
                        static_cast<cudaStream_t>(stream));
 }
 

@@ -14,11 +14,20 @@
 // [raw offset, env offset, length, first block, end block] (the blocks are
 // numbered across the raw buffer; per element its block id, int32).
 //
-// generic_epilogue: per segment m = max|x|, env[slot] = x * (1/m).  A
-//   reduction pass (per segment, each block's partial max) and an
-//   elementwise pass in which every block first reduces the partials of the
-//   segment in a fixed order; no atomics, and the product with 1/m makes the
-//   result bit-identical to the plain twin's.
+// generic_epilogue: per segment m = max|x|, env[slot] = x * (1/m), in one
+//   cooperative launch of a grid resident at once (the occupancy query's
+//   blocks an SM, at most EPI_BLOCKS_PER_SM).  The segments are one index
+//   space (their table in shared memory); a thread takes every gridDim x
+//   NT-th element, loads its first EPI_KEEP at once and keeps them in
+//   registers, and folds |x| into its segment's block maximum (a running
+//   max, then a shared-memory atomic max on |x|'s bits, which order like the
+//   values: no tree, no order to fix).  Each block merges its maxima into
+//   global ones (one atomic max a block and segment), waits at the grid
+//   barrier (coop.cuh, on words of its own) and reads them back, so each has
+//   the same 1/m; the last block to have read them zeroes them.  Each block then scales
+//   and stores the values it kept (elements past EPI_KEEP a thread are read
+//   again).  The product with 1/m makes the result bit-identical to the
+//   plain twin's; a NaN is the maximum, as in the twin.
 // sweep_commit: one step of the sweep loop: dist2 = sum |W - S|^2 over the
 //   whole env, S = W, i + 1, done = !(i < max_iter && dist2 > conv_tol^2).
 //   Every block commits its grid-stride share and writes its partial sum;
@@ -35,17 +44,28 @@
 //   deterministic; skipped with sg_norm); the elementwise pass.
 //
 // What bounds them on an H100: one or two reads and one write of a move's
-// outputs (a few hundred thousand elements at D=8, chi=160): microseconds,
-// latency rather than bandwidth.
+// outputs (a few hundred thousand elements at D=8, chi=160; generic_epilogue
+// 16 bytes an element, 8.1 MB, 2.4 us): microseconds, latency rather than
+// bandwidth.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "coop.cuh"
+
+#ifndef TPEPS_ABLATE  // generic_epilogue's timing copies: 1 no work after the table is
+#define TPEPS_ABLATE 0  // staged, 2 no grid barrier, 4 no stores (results wrong; timing only)
+#endif
+
 namespace {
 
 constexpr int NT = 256;
-constexpr int GRID = 264;
+constexpr int GRID = 264;  // sweep_commit's and generic_epilogue_vjp's grid
 constexpr int SEGW = 5;  // int64 per segment: src, dst, len, blk0, blk1
+// generic_epilogue: blocks an SM at most (2 measured faster than 1 or 4),
+// values a thread keeps across the barrier, segments a launch takes (a
+// longer table is walked in launches of MAX_SEG), grid at most
+constexpr int EPI_BLOCKS_PER_SM = 2, EPI_KEEP = 8, MAX_SEG = 64, EPI_MAX_GRID = 1024;
 
 template <typename T>
 __device__ T block_reduce(T v, bool is_max, T* buf) {
@@ -78,31 +98,90 @@ __device__ T reduce_partials(const T* __restrict__ part, bool is_max, T* buf) {
 
 template <typename T>
 __global__ void __launch_bounds__(NT)
-epilogue_reduce(const T* __restrict__ raw, const int64_t* __restrict__ seg, int nseg,
-                T* __restrict__ part) {
-  __shared__ T buf[NT];
-  const int64_t stride = static_cast<int64_t>(GRID) * NT;
-  for (int s = 0; s < nseg; ++s) {
-    const int64_t src = seg[SEGW * s], len = seg[SEGW * s + 2];
-    T m = T(0);
-    for (int64_t e = static_cast<int64_t>(blockIdx.x) * NT + threadIdx.x; e < len; e += stride)
-      m = fmax(m, fabs(raw[src + e]));
-    m = block_reduce(m, true, buf);
-    if (threadIdx.x == 0) part[s * GRID + blockIdx.x] = m;
+epilogue_kernel(const T* __restrict__ raw, const int64_t* __restrict__ seg, int nseg,
+                unsigned* __restrict__ bar, T* __restrict__ env) {
+  __shared__ int64_t s_src[MAX_SEG], s_dst[MAX_SEG], s_beg[MAX_SEG + 1];
+  __shared__ unsigned long long s_max[MAX_SEG];
+  __shared__ T s_inv[MAX_SEG];
+  for (int s = threadIdx.x; s < nseg; s += NT) {  // the table, a row a thread
+    s_src[s] = seg[SEGW * s];
+    s_dst[s] = seg[SEGW * s + 1];
+    s_beg[s + 1] = seg[SEGW * s + 2];
+    s_max[s] = 0ull;
   }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(NT)
-epilogue_apply(const T* __restrict__ raw, const int64_t* __restrict__ seg, int nseg,
-               const T* __restrict__ part, T* __restrict__ env) {
-  __shared__ T buf[NT];
-  const int64_t stride = static_cast<int64_t>(GRID) * NT;
-  for (int s = 0; s < nseg; ++s) {
-    const int64_t src = seg[SEGW * s], dst = seg[SEGW * s + 1], len = seg[SEGW * s + 2];
-    const T inv = T(1) / reduce_partials(part + s * GRID, true, buf);
-    for (int64_t e = static_cast<int64_t>(blockIdx.x) * NT + threadIdx.x; e < len; e += stride)
-      env[dst + e] = raw[src + e] * inv;
+  __syncthreads();
+  if (threadIdx.x == 0) {  // the lengths' prefix sums
+    s_beg[0] = 0;
+    for (int s = 1; s <= nseg; ++s) s_beg[s] += s_beg[s - 1];
+  }
+  __syncthreads();
+  if (TPEPS_ABLATE & 1) return;
+  const int64_t n = s_beg[nseg], stride = static_cast<int64_t>(gridDim.x) * NT;
+  const int64_t tid = static_cast<int64_t>(blockIdx.x) * NT + threadIdx.x;
+  // (1) the first EPI_KEEP loads sent together, then the maxima
+  T v[EPI_KEEP];
+  int sg[EPI_KEEP];
+  int s = 0;
+#pragma unroll
+  for (int r = 0; r < EPI_KEEP; ++r) {
+    const int64_t e = tid + r * stride;
+    v[r] = T(0);
+    sg[r] = -1;
+    if (e < n) {
+      while (e >= s_beg[s + 1]) ++s;
+      sg[r] = s;
+      v[r] = raw[s_src[s] + (e - s_beg[s])];
+    }
+  }
+  // a running max a thread, one shared atomic where its segment changes
+  int cur = -1;
+  unsigned long long m = 0ull;
+#pragma unroll
+  for (int r = 0; r < EPI_KEEP; ++r) {
+    if (sg[r] != cur) {
+      if (cur >= 0) atomicMax(&s_max[cur], m);
+      cur = sg[r];
+      m = 0ull;
+    }
+    m = max(m, abs_bits(v[r]));
+  }
+  for (int64_t e = tid + EPI_KEEP * stride; e < n; e += stride) {
+    while (e >= s_beg[s + 1]) ++s;
+    if (s != cur) {
+      if (cur >= 0) atomicMax(&s_max[cur], m);
+      cur = s;
+      m = 0ull;
+    }
+    m = max(m, abs_bits(raw[s_src[s] + (e - s_beg[s])]));
+  }
+  if (cur >= 0) atomicMax(&s_max[cur], m);
+  // (2) every block the same maxima: the blocks' maxima merged into the
+  // global ones (an atomic max, order-free), the grid barrier, and each
+  // block reads them back; the last block to have read them zeroes them
+  unsigned long long* gmax = reinterpret_cast<unsigned long long*>(bar + 4);
+  __syncthreads();
+  for (int q = threadIdx.x; q < nseg; q += NT)
+    if (s_max[q]) atomicMax(gmax + q, s_max[q]);
+  if (!(TPEPS_ABLATE & 2)) grid_barrier(bar);
+  for (int q = threadIdx.x; q < nseg; q += NT) s_max[q] = __ldcg(gmax + q);
+  __syncthreads();
+  if (threadIdx.x == 0 && atomicAdd(bar + 2, 1u) == gridDim.x - 1) {
+    for (int q = 0; q < nseg; ++q) gmax[q] = 0ull;
+    bar[2] = 0u;
+  }
+  // (3) the scaled values
+  for (int q = threadIdx.x; q < nseg; q += NT) s_inv[q] = T(1) / from_bits<T>(s_max[q]);
+  __syncthreads();
+  if (TPEPS_ABLATE & 4) return;
+#pragma unroll
+  for (int r = 0; r < EPI_KEEP; ++r) {
+    const int q = sg[r];
+    if (q >= 0) env[s_dst[q] + (tid + r * stride - s_beg[q])] = v[r] * s_inv[q];
+  }
+  s = 0;
+  for (int64_t e = tid + EPI_KEEP * stride; e < n; e += stride) {
+    while (e >= s_beg[s + 1]) ++s;
+    env[s_dst[s] + (e - s_beg[s])] = raw[s_src[s] + (e - s_beg[s])] * s_inv[s];
   }
 }
 
@@ -217,11 +296,23 @@ vjp_apply(const T* __restrict__ raw, const T* __restrict__ g, const int64_t* __r
   }
 }
 
+// a launch for every MAX_SEG rows of the table (the rows hold absolute
+// offsets; the launches share the barrier words, which each leaves zero)
 template <typename T>
-int epilogue_launch(const T* raw, const int64_t* seg, int nseg, T* part, T* env,
+int epilogue_launch(const T* raw, const int64_t* seg, int nseg, unsigned* bar, T* env,
                     cudaStream_t stream) {
-  epilogue_reduce<T><<<GRID, NT, 0, stream>>>(raw, seg, nseg, part);
-  epilogue_apply<T><<<GRID, NT, 0, stream>>>(raw, seg, nseg, part, env);
+  static int grid = 0;
+  cudaError_t e = cudaSuccess;
+  if (grid == 0) e = coop_grid(epilogue_kernel<T>, NT, EPI_BLOCKS_PER_SM, EPI_MAX_GRID, grid);
+  if (e != cudaSuccess) return e;
+  for (int s0 = 0; s0 < nseg; s0 += MAX_SEG) {
+    const int64_t* rows = seg + static_cast<int64_t>(SEGW) * s0;
+    int n = nseg - s0 < MAX_SEG ? nseg - s0 : MAX_SEG;
+    void* args[] = {&raw, &rows, &n, &bar, &env};
+    e = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(epilogue_kernel<T>),
+                                    dim3(grid), dim3(NT), args, 0, stream);
+    if (e != cudaSuccess) return e;
+  }
   return cudaGetLastError();
 }
 
@@ -238,16 +329,22 @@ int vjp_launch(const T* raw, const T* g, const int64_t* seg, int nseg, const int
 
 extern "C" {
 
+// partials of sweep_commit and of a pass of generic_epilogue_vjp
 int tpeps_generic_epilogue_partials(void) { return GRID; }
 
-int tpeps_generic_epilogue_f64(const double* raw, const int64_t* seg, int nseg, double* part,
+// the words at bar: the grid barrier's two counters, a counter of the blocks
+// that have read the maxima, a pad, and a 64-bit maximum a segment (at bar +
+// 4), zero before the call and zero after it
+int tpeps_generic_epilogue_bar_words(void) { return 4 + 2 * MAX_SEG; }
+
+int tpeps_generic_epilogue_f64(const double* raw, const int64_t* seg, int nseg, unsigned* bar,
                                double* env, void* stream) {
-  return epilogue_launch<double>(raw, seg, nseg, part, env, static_cast<cudaStream_t>(stream));
+  return epilogue_launch<double>(raw, seg, nseg, bar, env, static_cast<cudaStream_t>(stream));
 }
 
-int tpeps_generic_epilogue_f32(const float* raw, const int64_t* seg, int nseg, float* part,
+int tpeps_generic_epilogue_f32(const float* raw, const int64_t* seg, int nseg, unsigned* bar,
                                float* env, void* stream) {
-  return epilogue_launch<float>(raw, seg, nseg, part, env, static_cast<cudaStream_t>(stream));
+  return epilogue_launch<float>(raw, seg, nseg, bar, env, static_cast<cudaStream_t>(stream));
 }
 
 int tpeps_sweep_commit_f64(double* S, const double* W, int64_t n, double* dist2,

@@ -28,6 +28,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "coop.cuh"
+
 namespace {
 
 constexpr int NT = 256;        // threads per block: 8 rows of 32
@@ -59,23 +61,6 @@ __device__ T block_reduce(T v, int mode, T* buf) {
   const T r = buf[0];
   __syncthreads();
   return r;
-}
-
-// every block of the grid waits here; the last to leave resets both counters
-// to zero (bar[0] arrivals, bar[1] departures), as every launch leaves them
-__device__ void grid_barrier(unsigned* bar) {
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    __threadfence();
-    atomicAdd(bar, 1u);
-    while (*reinterpret_cast<volatile unsigned*>(bar) < gridDim.x) __nanosleep(64);
-    __threadfence();
-    if (atomicAdd(bar + 1, 1u) == gridDim.x - 1) {
-      bar[0] = 0u;
-      bar[1] = 0u;
-    }
-  }
-  __syncthreads();
 }
 
 struct TilePair {
@@ -203,15 +188,8 @@ template <typename T>
 cudaError_t grid_size(int& grid) {
   static int cached = 0;
   if (cached == 0) {
-    int dev = 0, sms = 0, per_sm = 0;
-    cudaError_t e = cudaGetDevice(&dev);
-    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (e == cudaSuccess)
-      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, t_epilogue_kernel<T>, NT, 0);
+    const cudaError_t e = coop_grid(t_epilogue_kernel<T>, NT, 2, MAX_GRID, cached);
     if (e != cudaSuccess) return e;
-    const int g = sms * (per_sm < 2 ? per_sm : 2);
-    if (g < 1) return cudaErrorInvalidConfiguration;
-    cached = g < MAX_GRID ? g : MAX_GRID;
   }
   grid = cached;
   return cudaSuccess;

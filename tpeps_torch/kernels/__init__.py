@@ -38,13 +38,13 @@ _COUNTERS: dict = {}
 _BARRIERS: dict = {}
 
 
-def _device_zeros(store: dict, device, n: int, what: str) -> torch.Tensor:
-    c = store.get(device)
+def _device_zeros(store: dict, key, device, n: int, what: str) -> torch.Tensor:
+    c = store.get(key)
     if c is None:
         if torch.cuda.is_current_stream_capturing():
             raise RuntimeError(f"{what}: call a kernel once on this device before capturing a "
                                "graph")
-        c = store[device] = torch.zeros(n, dtype=torch.int32, device=device)
+        c = store[key] = torch.zeros(n, dtype=torch.int32, device=device)
     return c
 
 
@@ -53,15 +53,20 @@ def arrival_counters(device) -> torch.Tensor:
     in their last-arriving block (K3's Gram, K2's split-K): zero when made,
     and every launch leaves them zero again, so launches on one stream share
     them."""
-    return _device_zeros(_COUNTERS, device, ARRIVAL_COUNTERS, "arrival counters")
+    return _device_zeros(_COUNTERS, device, device, ARRIVAL_COUNTERS, "arrival counters")
 
 
-def barrier_counters(device) -> torch.Tensor:
-    """The two counters of K4's grid barrier on the device, apart from
-    :func:`arrival_counters` so that no other kernel's arrivals reach them:
-    zero when made, and every launch leaves them zero again, so launches of
-    ``t_epilogue`` share them as long as they are ordered on one stream."""
-    return _device_zeros(_BARRIERS, device, 2, "barrier counters")
+def barrier_counters(device, owner: str, words: int = 2) -> torch.Tensor:
+    """The ``words`` 32-bit words of the grid barrier of the cooperative
+    kernel ``owner`` (K4's ``t_epilogue``, K9's ``frozen_commit``, K10's
+    ``generic_epilogue``) on the device: its two counters and whatever else
+    the kernel keeps there (K9: two 64-bit maxima).  Apart from
+    :func:`arrival_counters` and from the other owners', so that no other
+    kernel's arrivals reach them: zero when made, and every launch leaves
+    them zero again, so launches of one kernel share them as long as they
+    are ordered on one stream."""
+    return _device_zeros(_BARRIERS, (device, owner), device, words,
+                         f"{owner}'s barrier counters")
 
 
 def reset_launch_counts() -> None:

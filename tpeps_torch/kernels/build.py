@@ -25,6 +25,7 @@ BUILD_DIR = PKG_DIR / "_build"
 SOURCES = ("double_layer.cu", "corner_apply.cu", "cholqr.cu", "t_epilogue.cu", "polar.cu",
            "eigh_small.cu", "ozaki.cu", "ctm_commit.cu", "block_sparse.cu", "frozen_commit.cu",
            "frozen_generic.cu")
+HEADERS = ("coop.cuh",)  # included by sources above: part of the library's hash
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -65,6 +66,7 @@ _SIGNATURES = {
     "tpeps_frozen_commit_f64": (_vp,) * 11 + (_i64, _i64, _vp),
     "tpeps_frozen_commit_f32": (_vp,) * 11 + (_i64, _i64, _vp),
     "tpeps_frozen_commit_partials": (),
+    "tpeps_frozen_commit_bar_words": (),
     "tpeps_frozen_epilogue_vjp_f64": (_vp,) * 10 + (_i, _i, _vp, _vp, _vp, _i64, _i64, _i, _vp),
     "tpeps_frozen_epilogue_vjp_f32": (_vp,) * 10 + (_i, _i, _vp, _vp, _vp, _i64, _i64, _i, _vp),
     "tpeps_frozen_epilogue_vjp_partials": (),
@@ -74,6 +76,7 @@ _SIGNATURES = {
     "tpeps_generic_epilogue_f64": (_vp, _vp, _i, _vp, _vp, _vp),
     "tpeps_generic_epilogue_f32": (_vp, _vp, _i, _vp, _vp, _vp),
     "tpeps_generic_epilogue_partials": (),
+    "tpeps_generic_epilogue_bar_words": (),
     "tpeps_sweep_commit_f64": (_vp, _vp, _i64, _vp, _vp, _vp, _vp, _vp),
     "tpeps_sweep_commit_f32": (_vp, _vp, _i64, _vp, _vp, _vp, _vp, _vp),
     "tpeps_generic_epilogue_vjp_f64": (_vp, _vp, _vp, _i, _vp, _vp, _vp, _i, _vp, _vp),
@@ -131,7 +134,7 @@ def find_nvcc() -> str:
 
 def _source_hash() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in (*SOURCES, *HEADERS):
         h.update(name.encode())
         h.update((CSRC_DIR / name).read_bytes())
     return h.hexdigest()[:16]

@@ -30,7 +30,7 @@ def t_epilogue(nT, normalization: str = "inf"):
     batch = nT.numel() // (m * m) if m else 0
     lib = library()
     part = torch.empty(lib.cdll.tpeps_t_epilogue_partials(), dtype=nT.dtype, device=nT.device)
-    bar = barrier_counters(nT.device)
+    bar = barrier_counters(nT.device, "t_epilogue")
     out = torch.empty_like(nT)
     mode = 0 if normalization == "inf" else 1
     with torch.cuda.device(nT.device):

@@ -21,7 +21,7 @@ from typing import NamedTuple
 
 import torch
 
-from . import LAUNCHES, require_contiguous, route, stream_of, suffix
+from . import LAUNCHES, barrier_counters, require_contiguous, route, stream_of, suffix
 from .build import library
 
 
@@ -85,16 +85,16 @@ def frozen_commit(state: FrozenState, rawC, rawT, pC, pT) -> None:
             raise ValueError(f"frozen_commit: {name} must be {dtype} on {rawC.device}")
     require_contiguous("frozen_commit", C=state.C, T=state.T, rawC=rawC, rawT=rawT, pC=pC, pT=pT)
     lib = library()
-    nC, nT = rawC.numel(), rawT.numel()
-    sym = torch.empty(nC + nT, dtype=rawC.dtype, device=rawC.device)
     part = torch.empty(lib.cdll.tpeps_frozen_commit_partials(), dtype=rawC.dtype,
                        device=rawC.device)
+    bar = barrier_counters(rawC.device, "frozen_commit",
+                           lib.cdll.tpeps_frozen_commit_bar_words())
     with torch.cuda.device(rawC.device):
         err = getattr(lib.cdll, f"tpeps_frozen_commit_{suffix(rawC)}")(
             state.C.data_ptr(), state.T.data_ptr(), state.dist2.data_ptr(),
-            state.conv_tol.data_ptr(), state.ctl.data_ptr(), sym.data_ptr(), part.data_ptr(),
-            rawC.data_ptr(), rawT.data_ptr(), pC.data_ptr(), pT.data_ptr(), nC, nT,
-            stream_of(rawC))
+            state.conv_tol.data_ptr(), state.ctl.data_ptr(), part.data_ptr(), bar.data_ptr(),
+            rawC.data_ptr(), rawT.data_ptr(), pC.data_ptr(), pT.data_ptr(), rawC.numel(),
+            rawT.numel(), stream_of(rawC))
     lib.check(err, "frozen_commit")
     LAUNCHES["frozen_commit"] += 1
 

@@ -25,7 +25,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from . import LAUNCHES, require_contiguous, route, stream_of, suffix
+from . import LAUNCHES, barrier_counters, require_contiguous, route, stream_of, suffix
 from .build import library
 from .frozen import scale_vjp_twin
 
@@ -98,7 +98,8 @@ def generic_epilogue_twin(raw, seg: SegmentTable, env) -> None:
 
 def generic_epilogue(raw, seg: SegmentTable, env) -> None:
     """Per segment of the flat ``raw`` (:class:`SegmentTable`) ``m = max|x|``
-    and ``env[slot] = x * (1 / m)``, in place on ``env``."""
+    and ``env[slot] = x * (1 / m)``, in place on ``env``: one cooperative
+    launch for every 64 segments (a directional move has three a site)."""
     _check("generic_epilogue", raw, seg, env)
     if not route("generic_epilogue", raw, env):
         return generic_epilogue_twin(raw, seg, env)
@@ -106,11 +107,11 @@ def generic_epilogue(raw, seg: SegmentTable, env) -> None:
         raise ValueError(f"generic_epilogue: the table must be on {raw.device}")
     require_contiguous("generic_epilogue", raw=raw, env=env)
     lib = library()
-    part = torch.empty(lib.cdll.tpeps_generic_epilogue_partials() * max(len(seg.host), 1),
-                       dtype=raw.dtype, device=raw.device)
+    bar = barrier_counters(raw.device, "generic_epilogue",
+                           lib.cdll.tpeps_generic_epilogue_bar_words())
     with torch.cuda.device(raw.device):
         err = getattr(lib.cdll, f"tpeps_generic_epilogue_{suffix(raw)}")(
-            raw.data_ptr(), seg.seg.data_ptr(), len(seg.host), part.data_ptr(), env.data_ptr(),
+            raw.data_ptr(), seg.seg.data_ptr(), len(seg.host), bar.data_ptr(), env.data_ptr(),
             stream_of(raw))
     lib.check(err, "generic_epilogue")
     LAUNCHES["generic_epilogue"] += 1
