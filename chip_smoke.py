@@ -2108,7 +2108,8 @@ def frozen_commit_checks(C, T, rawC, rawT, pC, pT) -> dict:
     outputs, on a copy whose largest magnitude ties many times, and on a
     layout of odd sizes wider than the values the grid keeps in registers
     (:data:`WIDE_C`, :data:`WIDE_T`, :func:`pair_partners`: every thread
-    reads some of its elements again after the barrier); C, T bit-exact,
+    reads some of its elements again after the barrier), and on a copy with
+    a NaN in C' (C all NaN, as the twin's max); C, T bit-exact,
     (i, done) equal, dist2 <= 1e-12 relative; a state whose loop ended left
     untouched; two calls bit-identical; timed eagerly and in CUDA graphs
     beside its bound (32 bytes an element: raw, partner index, the committed
@@ -2125,7 +2126,8 @@ def frozen_commit_checks(C, T, rawC, rawT, pC, pT) -> dict:
             "max ties": (C, T, tied_raw(rawC, pC, gen), tied_raw(rawT, pT, gen), pC, pT),
             f"a wide layout ({WIDE_C} + {WIDE_T} entries)":
                 (rnd(WIDE_C), rnd(WIDE_T), rnd(WIDE_C), rnd(WIDE_T),
-                 pair_partners(WIDE_C, gen, dev), pair_partners(WIDE_T, gen, dev))}
+                 pair_partners(WIDE_C, gen, dev), pair_partners(WIDE_T, gen, dev)),
+            "a NaN in C'": (C, T, with_nan(rawC), rawT, pC, pT)}
     errs = []
     for label, (C0, T0, rC, rT, qC, qT) in raws.items():
         for done in (0, 1):
@@ -2135,13 +2137,13 @@ def frozen_commit_checks(C, T, rawC, rawT, pC, pT) -> dict:
             kfrozen.frozen_commit(sk, rC, rT, qC, qT)
             kfrozen.frozen_commit(s2, rC, rT, qC, qT)
             kfrozen.frozen_commit_twin(stw, rC, rT, qC, qT)
-            e_d = 0.0 if torch.equal(sk.dist2, stw.dist2) else rel_err(sk.dist2, stw.dist2)
-            errs.append(max(float((x - y).abs().max())
+            e_d = 0.0 if same_float(sk.dist2, stw.dist2) else rel_err(sk.dist2, stw.dist2)
+            errs.append(max(float((x - y).nan_to_num(0.0).abs().max())
                             for x, y in ((sk.C, stw.C), (sk.T, stw.T), (sk.dist2, stw.dist2))))
             untouched = torch.equal(sk.C, C0) and torch.equal(sk.T, T0)
-            check(torch.equal(sk.C, stw.C) and torch.equal(sk.T, stw.T) and e_d <= TOL[torch.float64]
-                  and torch.equal(sk.ctl[:2], stw.ctl[:2]) and untouched == bool(done)
-                  and all(torch.equal(x, y) for x, y in zip(sk, s2)),
+            check(same_float(sk.C, stw.C) and same_float(sk.T, stw.T)
+                  and e_d <= TOL[torch.float64] and torch.equal(sk.ctl[:2], stw.ctl[:2])
+                  and untouched == bool(done) and all(same_float(x, y) for x, y in zip(sk, s2)),
                   f"frozen_commit on {label}{', loop ended' if done else ''}: C, T bit-exact, "
                   f"(i, done) {sk.ctl[:2].tolist()}, dist2 {float(sk.dist2):.6e} rel err "
                   f"{e_d:.1e} <= 1e-12, state {'untouched' if untouched else 'committed'}; two "
@@ -2163,6 +2165,148 @@ def frozen_commit_checks(C, T, rawC, rawT, pC, pT) -> dict:
           f"({b_by})")
     return {"max_abs_err": max(errs), "ms": ms_e, "plain_ms": tw_ms, "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": None, "graph_ms": ms_g}
+
+
+def wide_table(gen, dev):
+    """K10's table of more outputs than a launch takes (130: it is walked in
+    launches of 64), of odd lengths (one of 1), wider than the values the
+    grid keeps in registers, written into slots in reverse order: the
+    lengths and the table."""
+    from tpeps_torch.kernels import frozen_generic as kgen
+
+    lens = [1] + (torch.randint(0, 8000, (129,), generator=gen) * 2 + 1).tolist()
+    ends = np.cumsum(lens[::-1])[::-1]
+    return lens, kgen.segment_table([(int(e) - n, [n]) for e, n in zip(ends, lens)], dev)
+
+
+def with_nan(raw, at=None):
+    """A copy of ``raw`` with one NaN (at ``at``, else a third of the way in)."""
+    out = raw.clone()
+    out[raw.numel() // 3 if at is None else at] = math.nan
+    return out
+
+
+def vjp_agrees(got, ref, sg) -> tuple:
+    """An epilogue VJP's outputs against the twin's: (agrees, max abs error,
+    max relative error) -- NaN where the twin is NaN, and the rest bit for bit
+    with the scale detached (``sg``), else within 1e-12 (f64) or 1e-5 (f32)
+    relative (the dot's summation order)."""
+    err = rel = 0.0
+    ok = True
+    for x, y in zip(got, ref):
+        ok &= torch.equal(x.isnan(), y.isnan())
+        x, y = x.nan_to_num(0.0), y.nan_to_num(0.0)
+        err, rel = max(err, float((x - y).abs().max())), max(rel, rel_err(x, y))
+        ok &= torch.equal(x, y) if sg else rel <= TOL[x.dtype]
+    return ok, err, rel
+
+
+def frozen_vjp_checks(rawC, rawT, pC, pT, gC, gT, blk) -> float:
+    """K9 ``frozen_epilogue_vjp`` against its twin at ``sg_norm`` False and
+    True on one frozen move's raw outputs, on a copy whose largest magnitude
+    ties across many layout blocks in both signs (:func:`tied_raw`), on raw
+    outputs whose symmetrized entries are all equal (every entry tied) and
+    on a copy with a NaN in C' (C's cotangent all NaN, T's the twin's), each
+    in f64 and f32 (:func:`vjp_agrees`); two calls bit-identical, a call
+    captured in a CUDA graph the eager call's bits, the barrier words left
+    0.  Returns the largest abs error."""
+    from tpeps_torch.kernels import barrier_counters
+    from tpeps_torch.kernels import frozen as kfrozen
+    from tpeps_torch.kernels.build import library
+
+    t0, dev = time.perf_counter(), rawC.device
+    gen = torch.Generator(device=dev).manual_seed(14)
+    equal = lambda r, p: torch.where(p >= 0, 1.0, 2.0).to(r.dtype)  # z = 1 everywhere
+    cases = {"the move's raw outputs": (rawC, rawT),
+             "max ties": (tied_raw(rawC, pC, gen), tied_raw(rawT, pT, gen)),
+             "all entries equal": (equal(rawC, pC), equal(rawT, pT)),
+             "a NaN in C'": (with_nan(rawC), rawT)}
+    bar = barrier_counters(dev, "frozen_epilogue_vjp",
+                           library().cdll.tpeps_frozen_epilogue_vjp_bar_words())
+    err_max = 0.0
+    for label, (rC, rT) in cases.items():
+        for dtype in (torch.float64, torch.float32):
+            for sg in (False, True):
+                args = (rC.to(dtype), rT.to(dtype), pC, pT, gC.to(dtype), gT.to(dtype), *blk, sg)
+                xk = kfrozen.frozen_epilogue_vjp(*args)
+                same = all(same_float(a, b) for a, b in zip(xk, kfrozen.frozen_epilogue_vjp(*args)))
+                graphed = all(same_float(a, b) for a, b in zip(xk, in_graph(
+                    lambda: kfrozen.frozen_epilogue_vjp(*args))))
+                ok, err, rel = vjp_agrees(xk, kfrozen.frozen_epilogue_vjp_twin(*args), sg)
+                nan_c = bool(xk[0].isnan().all()) and not bool(xk[1].isnan().any())
+                if dtype == torch.float64:
+                    err_max = max(err_max, err)
+                check(ok and same and graphed and int(bar.abs().sum()) == 0
+                      and (nan_c if "NaN" in label else not bool(xk[0].isnan().any())),
+                      f"frozen_epilogue_vjp on {label}, {str(dtype)[6:]}, sg_norm={sg}: "
+                      f"{'bit-exact' if sg else f'rel err {rel:.1e}'}, NaN where the twin's; "
+                      "two calls and a graphed call bit-identical; barrier words left 0")
+    print(f"  frozen_epilogue_vjp checks: {time.perf_counter() - t0:.1f} s", flush=True)
+    return err_max
+
+
+def generic_vjp_checks(raw, g, seg) -> float:
+    """K10 ``generic_epilogue_vjp`` against its twin at ``sg_norm`` False and
+    True on one frozen move's raw outputs, on a copy whose largest output's
+    maximum ties at entries in many layout blocks and in both signs, on a
+    copy with an output all equal (every entry tied) and on a copy with a
+    NaN in one output (that output's cotangent all NaN, the others the
+    twin's), in f64 and f32, and on a table of 130 outputs (more than a
+    launch takes: it walks the table in launches of 64), one of them NaN
+    (:func:`vjp_agrees`); two calls bit-identical, a call captured in a CUDA
+    graph the eager call's bits, the barrier words left 0.  Returns the
+    largest abs error."""
+    from tpeps_torch.kernels import barrier_counters
+    from tpeps_torch.kernels import frozen_generic as kgen
+    from tpeps_torch.kernels.build import library
+
+    t0, dev = time.perf_counter(), raw.device
+    gen = torch.Generator(device="cpu").manual_seed(15)
+    host = seg.host.tolist()
+    q = max(range(len(host)), key=lambda i: host[i][2])  # the largest output
+    so, _, n, _, _ = host[q]
+    tied = raw.clone()
+    at = torch.randperm(n, generator=gen)[:15]
+    at = so + torch.cat([at, (at[:1] + 1) % n]).to(dev)  # and neighbours, mostly in one block
+    m = 2 * float(raw[so:so + n].abs().max())
+    tied[at] = torch.where(torch.arange(len(at), device=dev) % 2 == 0, m, -m).to(raw.dtype)
+    flat = raw.clone()
+    flat[host[0][0]:host[0][0] + host[0][2]] = 0.5
+    lens, wide = wide_table(gen, dev)
+    raw_w = torch.randn(wide.numel, generator=gen, dtype=torch.float64).to(dev)
+    g_w = torch.randn(wide.numel, generator=gen, dtype=torch.float64).to(dev)
+    k = min(1, len(host) - 1)
+    cases = {"the move's raw outputs": (raw, g, seg, None),
+             f"a copy whose output {q} ties in many blocks in both signs": (tied, g, seg, None),
+             "a copy with output 0 all equal": (flat, g, seg, None),
+             f"a copy with a NaN in output {k}":
+                 (with_nan(raw, host[k][0] + host[k][2] // 2), g, seg, k),
+             f"{len(lens)} outputs of odd lengths, one of them NaN":
+                 (with_nan(raw_w, sum(lens[:70]) + lens[70] // 2), g_w, wide, 70)}
+    bar = barrier_counters(dev, "generic_epilogue_vjp",
+                           library().cdll.tpeps_generic_epilogue_vjp_bar_words())
+    err_max = 0.0
+    for label, (r, gg, sq, nan_out) in cases.items():
+        for dtype in (torch.float64, torch.float32):
+            for sg in (False, True):
+                args = (r.to(dtype), gg.to(dtype), sq, sg)
+                xk = kgen.generic_epilogue_vjp(*args)
+                same = same_float(xk, kgen.generic_epilogue_vjp(*args))
+                graphed = same_float(xk, in_graph(lambda: kgen.generic_epilogue_vjp(*args))[0])
+                ok, err, rel = vjp_agrees((xk,), (kgen.generic_epilogue_vjp_twin(*args),), sg)
+                nans = torch.zeros_like(xk, dtype=torch.bool)
+                if nan_out is not None:
+                    a, _, n_out, _, _ = sq.host[nan_out].tolist()
+                    nans[a:a + n_out] = True
+                if dtype == torch.float64:
+                    err_max = max(err_max, err)
+                check(ok and same and graphed and int(bar.abs().sum()) == 0
+                      and torch.equal(xk.isnan(), nans),
+                      f"generic_epilogue_vjp on {label}, {str(dtype)[6:]}, sg_norm={sg}: "
+                      f"{'bit-exact' if sg else f'rel err {rel:.1e}'}, NaN in that output only; "
+                      "two calls and a graphed call bit-identical; barrier words left 0")
+    print(f"  generic_epilogue_vjp checks: {time.perf_counter() - t0:.1f} s", flush=True)
+    return err_max
 
 
 def phase8(dev) -> tuple:
@@ -2687,18 +2831,19 @@ def phase9(dev) -> tuple:
     gC, gT = rnd(nC.data.numel()), rnd(nT.data.numel())
     blk = (ab_frozen.block_index(C.struct, dev), ab_frozen.block_index(T.struct, dev),
            len(C.struct.keys), len(T.struct.keys))
-    for sg in (False, True):
-        xk = kfrozen.frozen_epilogue_vjp(nC.data, nT.data, pC, pT, gC, gT, *blk, sg)
-        xt = kfrozen.frozen_epilogue_vjp_twin(nC.data, nT.data, pC, pT, gC, gT, *blk, sg)
-        e = max(rel_err(u, v) for u, v in zip(xk, xt))
-        check(e <= TOL[torch.float64], f"frozen_epilogue_vjp (sg_norm={sg}) on C' "
-                                       f"{nC.data.numel()}, T' {nT.data.numel()} entries: rel "
-                                       f"err {e:.1e} <= 1e-12")
+    err_vjp = frozen_vjp_checks(nC.data, nT.data, pC, pT, gC, gT, blk)
+    # bound: raw, partner index, ybar and xbar 8 bytes an element, the block
+    # id 4 (the tie split's input)
     nel = nC.data.numel() + nT.data.numel()
-    time_case(rec, "frozen_epilogue_vjp",
-              lambda: kfrozen.frozen_epilogue_vjp(nC.data, nT.data, pC, pT, gC, gT, *blk),
+    vjp = lambda: kfrozen.frozen_epilogue_vjp(nC.data, nT.data, pC, pT, gC, gT, *blk)
+    time_case(rec, "frozen_epilogue_vjp", vjp,
               lambda: kfrozen.frozen_epilogue_vjp_twin(nC.data, nT.data, pC, pT, gC, gT, *blk),
-              None, 8 * 4 * nel, 8 * nel, FP64_CC)
+              None, 36 * nel, 8 * nel, FP64_CC)
+    rec["frozen_epilogue_vjp"]["max_abs_err"] = max(rec["frozen_epilogue_vjp"]["max_abs_err"],
+                                                    err_vjp)
+    rec["frozen_epilogue_vjp"]["graph_ms"] = graph_ms(vjp)
+    print(f"  frozen_epilogue_vjp in CUDA graphs {rec['frozen_epilogue_vjp']['graph_ms'] * 1000:.2f}"
+          f" us ({nel} entries)")
     # one adjoint step, then the crafted loops
     da_i, uC, uT = rnd(a.data.numel()), rnd(C.data.numel()), rnd(T.data.numel())
     sk = kfrozen.adjoint_state(a.data, gC, gT, 100, 1e-8)
@@ -3218,14 +3363,10 @@ def phase10(dev) -> tuple:
           f"generic_epilogue on one frozen move's {len(seg.host)} outputs ({raw.numel()} "
           f"entries, {seg.nblk} blocks): bit-exact; two calls bit-identical")
     del W2
-    # a table of more segments than a launch takes (64: it is walked in
-    # launches), of odd lengths (one of 1), wider than the values the grid
-    # keeps in registers (WIDE_T), written into slots in reverse order, one
-    # output holding a NaN (that output NaN in both)
+    # the 130 outputs of wide_table, one of them holding a NaN (that output
+    # NaN in both)
     gen = torch.Generator(device="cpu").manual_seed(10)
-    lens = [1] + (torch.randint(0, 8000, (129,), generator=gen) * 2 + 1).tolist()
-    ends = np.cumsum(lens[::-1])[::-1]
-    wide = kgen.segment_table([(int(e) - n, [n]) for e, n in zip(ends, lens)], dev)
+    lens, wide = wide_table(gen, dev)
     raw_w = torch.randn(wide.numel, generator=gen, dtype=torch.float64).to(dev)
     raw_w[sum(lens[:70]) + lens[70] // 2] = math.nan
     wk, wt, w2 = (torch.zeros_like(raw_w) for _ in range(3))
@@ -3255,22 +3396,31 @@ def phase10(dev) -> tuple:
           and e_d <= TOL[torch.float64],
           f"sweep_commit over the env's {X.numel()} entries: state bit-exact, (i, done) "
           f"{sk.ctl[:2].tolist()}, dist2 {float(sk.dist2):.6e} rel err {e_d:.1e} <= 1e-12")
-    sk2, st2 = kgen.sweep_state(X, 10**9, -1.0), kgen.sweep_state(X, 10**9, -1.0)
-    time_case(rec, "sweep_commit", lambda: (kgen.sweep_commit(sk2, Wk), sk2.S)[1],
-              lambda: (kgen.sweep_commit_twin(st2, Wk), st2.S)[1], None,
+    # the timing calls alternate the move's env and the start, so that every
+    # call commits (a repeated W gives dist2 = 0 and ends the loop)
+    sk2, st2 = kgen.sweep_state(X, 10**9, 0.0), kgen.sweep_state(X, 10**9, 0.0)
+    turn_k, turn_t = itertools.cycle((Wk, X)), itertools.cycle((Wk, X))
+    time_case(rec, "sweep_commit", lambda: (kgen.sweep_commit(sk2, next(turn_k)), sk2.S)[1],
+              lambda: (kgen.sweep_commit_twin(st2, next(turn_t)), st2.S)[1], None,
               8 * 3 * X.numel(), 3 * X.numel(), FP64_CC)
+    check(int(sk2.ctl[1]) == 0 and int(sk2.ctl[0]) > 10,
+          f"sweep_commit's timing loop never ended ({int(sk2.ctl[0])} commits)")
     rec["sweep_commit"]["max_abs_err"] = max(rec["sweep_commit"]["max_abs_err"],
                                              float((sk.dist2 - stw.dist2).abs()))
     gen = torch.Generator(device=dev).manual_seed(10)
     g = torch.rand(X.numel(), generator=gen, device=dev, dtype=torch.float64) - 0.5
-    for sg in (True, False):
-        e = rel_err(kgen.generic_epilogue_vjp(raw, g, seg, sg),
-                    kgen.generic_epilogue_vjp_twin(raw, g, seg, sg))
-        check(e <= TOL[torch.float64], f"generic_epilogue_vjp (sg_norm={sg}): rel err "
-                                       f"{e:.1e} <= 1e-12")
-    time_case(rec, "generic_epilogue_vjp", lambda: kgen.generic_epilogue_vjp(raw, g, seg),
+    err_vjp = generic_vjp_checks(raw, g, seg)
+    # bound: raw, g and xbar 8 bytes an element, the block id 4 (the tie
+    # split's input)
+    vjp = lambda: kgen.generic_epilogue_vjp(raw, g, seg)
+    time_case(rec, "generic_epilogue_vjp", vjp,
               lambda: kgen.generic_epilogue_vjp_twin(raw, g, seg), None,
-              8 * 3 * raw.numel(), 5 * raw.numel(), FP64_CC)
+              28 * raw.numel(), 5 * raw.numel(), FP64_CC)
+    rec["generic_epilogue_vjp"]["max_abs_err"] = max(
+        rec["generic_epilogue_vjp"]["max_abs_err"], err_vjp)
+    rec["generic_epilogue_vjp"]["graph_ms"] = graph_ms(vjp)
+    print(f"  generic_epilogue_vjp in CUDA graphs "
+          f"{rec['generic_epilogue_vjp']['graph_ms'] * 1000:.2f} us ({raw.numel()} entries)")
     del raws, raw, Wk, Wt, sk, stw, sk2, st2, g
 
     part_done("(a) K10 against its twins")
@@ -3367,6 +3517,10 @@ def phase10(dev) -> tuple:
 # without the last block's sum and without the partner gather
 COMMIT_COPIES = {0: "whole", 1: "launch and set-up only", 2: "no grid barrier", 4: "no stores"}
 FROZEN_COPIES = {**COMMIT_COPIES, 8: "no last block's sum", 16: "no partner gather"}
+# the timing copies of K9's frozen_epilogue_vjp and K10's generic_epilogue_vjp
+VJP_COPIES = {0: "whole", 32: "launch and set-up only", 64: "no grid barriers",
+              256: "no second barrier", 128: "no stores"}
+FROZEN_VJP_COPIES = {**VJP_COPIES, 512: "no partner gathers"}
 # K5's ctm_commit and a copy of it in 16-byte vectors, four loads in flight a thread
 CTM_COPIES = {0: "whole", "-DTPEPS_CTM_VEC=1": "16-byte copy"}
 # what each -DTPEPS_ABLATE bit leaves out (csrc/cholqr.cu, csrc/ozaki.cu,
@@ -3404,23 +3558,27 @@ ABLATIONS = {"cholqr.cu": {0: "whole", 1: "no loads", 2: "no MMAs", 3: "no loads
                           16: "no staging", 32: "no gather",
                           "-DTPEPS_POLAR_DEPTH=3": "12 k-steps of loads in flight"},
              "ctm_commit.cu": CTM_COPIES,
-             "frozen_commit.cu": FROZEN_COPIES, "frozen_generic.cu": COMMIT_COPIES}
+             "frozen_commit.cu": {**FROZEN_COPIES, **FROZEN_VJP_COPIES},
+             "frozen_generic.cu": {**COMMIT_COPIES, **VJP_COPIES}}
 ABLATE_KERNELS = ("gram_kernel", "ozaki_gemm_kernel", "trsm_kernel", "block_jacobi",
                   "double_layer_kernel", "corner_dmma_kernel", "layer_dmma_kernel",
                   "dmma_gemm_kernel", "polar_kernel", "polar_vjp_kernel", "block_gemm_kernel",
                   "block_permute_kernel", "split_rows", "split_cols", "t_epilogue_kernel",
-                  "ctm_commit_kernel", "frozen_commit_kernel", "epilogue_kernel")
+                  "ctm_commit_kernel", "frozen_commit_kernel", "epilogue_kernel", "epilogue_vjp",
+                  "vjp_")
 # the parts of ablate(): the sources each builds, and those of the parent it needs
 ABLATE_GROUPS = {"gram": ("cholqr.cu",), "ozaki": ("ozaki.cu",), "solves": ("cholqr.cu",),
                  "eigh": ("eigh_small.cu",), "fused": ("double_layer.cu", "corner_apply.cu"),
                  "polar": ("polar.cu",), "k8": ("block_sparse.cu",), "split": ("ozaki.cu",),
                  "epilogue": ("t_epilogue.cu",),
-                 "commit": ("ctm_commit.cu", "frozen_commit.cu", "frozen_generic.cu")}
+                 "commit": ("ctm_commit.cu", "frozen_commit.cu", "frozen_generic.cu"),
+                 "vjp": ("frozen_commit.cu", "frozen_generic.cu")}
 # the parent's sources each part times, and the sources linked with each
 # (the parent's polar.cu calls the Gram of its cholqr.cu)
 ABLATE_PARENT = {"solves": ("cholqr.cu",), "fused": ("layer_contract.cu", "corner_apply.cu"),
                  "polar": ("polar.cu",), "k8": ("block_sparse.cu",), "split": ("ozaki.cu",),
-                 "epilogue": ("t_epilogue.cu",), "commit": ("frozen_commit.cu", "frozen_generic.cu")}
+                 "epilogue": ("t_epilogue.cu",), "commit": ("frozen_commit.cu", "frozen_generic.cu"),
+                 "vjp": ("frozen_commit.cu", "frozen_generic.cu")}
 PARENT_LINKED = {"polar.cu": ("cholqr.cu",)}
 
 
@@ -3483,9 +3641,13 @@ def ablate(parent=None, only=None) -> dict:
     also as the launch alone, without the grid barrier and without stores),
     with ``parent`` the parent's two,
     :func:`move_compare` and :func:`k8_move_compare`'s frozen move.
+    K9's ``frozen_epilogue_vjp``, K10's ``generic_epilogue_vjp``,
+    ``adjoint_commit`` and ``sweep_commit`` (:func:`ablate_vjp`, ``vjp``),
+    with ``parent`` the parent's beside them and :func:`k8_move_compare`'s
+    adjoint iteration.
     ``only`` names the parts to run (:data:`ABLATE_GROUPS`).  Run by
     ``chip_smoke.py --ablate [--parent DIR]
-    [--only gram,ozaki,solves,eigh,fused,polar,k8,split,epilogue,commit]``."""
+    [--only gram,ozaki,solves,eigh,fused,polar,k8,split,epilogue,commit,vjp]``."""
     from tpeps_torch.kernels import build as kb
 
     groups = tuple(ABLATE_GROUPS) if only is None else tuple(only)
@@ -3553,9 +3715,11 @@ def ablate(parent=None, only=None) -> dict:
         rec.update(ablate_epilogue(libs, in_turns, stream, dev, parent))
     if "commit" in groups:
         rec.update(ablate_commit(libs, in_turns, stream, dev, parent))
+    if "vjp" in groups:
+        rec.update(ablate_vjp(libs, in_turns, stream, dev, parent))
     if "k8" in groups:
         rec.update(ablate_k8(libs, in_turns, stream, dev, parent is not None))
-    if parent is not None and {"k8", "commit"} & set(groups):
+    if parent is not None and {"k8", "commit", "vjp"} & set(groups):
         rec["k8_moves"] = k8_move_compare(parent)
     if "polar" in groups:
         rec.update(ablate_polar(libs, in_turns, stream, dev, parent is not None))
@@ -3739,8 +3903,9 @@ def ablate_epilogue(libs, in_turns, stream, dev, parent) -> dict:
 
 def frozen_layout(dev):
     """Phase 8's frozen-move layout (U(1) D=8, chi=160: AB_WARM_MOVES dynamic
-    moves from the seeded state, frozen and closed): the flat C and T and
-    their transpose-partner tables."""
+    moves from the seeded state, frozen and closed): the flat C and T, their
+    transpose-partner tables, their block indices and block counts, and the
+    site's entries."""
     from tpeps_torch.ctm.c4v_abelian import ctmrg as ab_ctmrg
     from tpeps_torch.ctm.c4v_abelian import frozen as ab_frozen
     from tpeps_torch.ctm.c4v_abelian.env import init_env as ab_init_env
@@ -3752,7 +3917,9 @@ def frozen_layout(dev):
         env = ab_ctmrg.ctm_move_sl(a, env, AB_PK)
     C, T = ab_frozen.close_structure(a, env.C, env.T, dict(ab_frozen.freeze_from_env(env)))
     return (C.data, T.data, ab_frozen.partner_index(C.struct, ab_frozen.C_PARTNER, dev),
-            ab_frozen.partner_index(T.struct, ab_frozen.T_PARTNER, dev))
+            ab_frozen.partner_index(T.struct, ab_frozen.T_PARTNER, dev),
+            (ab_frozen.block_index(C.struct, dev), ab_frozen.block_index(T.struct, dev),
+             len(C.struct.keys), len(T.struct.keys)), a.data.numel())
 
 
 # K10's timing table: a directional move of the 2-site D=8 chi=160 cell has
@@ -3895,7 +4062,7 @@ def ablate_commit(libs, in_turns, stream, dev, parent) -> dict:
     del flush
     rec["ctm_commit in the graphed move"] = ctm_commit_in_move(dev)
 
-    C, T, pC, pT = frozen_layout(dev)
+    C, T, pC, pT, _, _ = frozen_layout(dev)
     nel = C.numel() + T.numel()
     rnd = lambda n: torch.randn(n, generator=gen, device=dev, dtype=C.dtype)
     raws = ((rnd(C.numel()), rnd(T.numel())), (rnd(C.numel()), rnd(T.numel())))
@@ -3966,6 +4133,209 @@ def ablate_commit(libs, in_turns, stream, dev, parent) -> dict:
     b_ms, _ = bound(2 * nbytes(raw), raw.numel(), FP64_CC)
     rec["generic_epilogue f64"] = {"ms": ms, "bound_ms": b_ms, "segments": GEN_EPI_SEGMENTS}
     print(f"  generic_epilogue f64 ({len(GEN_EPI_SEGMENTS)} segments, {raw.numel()} entries): "
+          + ", ".join(f"{v} {t * 1000:.2f} us" for v, t in ms.items())
+          + f"; bound {b_ms * 1000:.2f} us", flush=True)
+    return rec
+
+
+def takes_bar(path, fn) -> bool:
+    """Whether the C entry ``fn`` of the source ``path`` takes barrier words
+    (one cooperative launch) or not (the three-launch form)."""
+    m = re.search(rf"int {fn}\(([^)]*)\)", Path(path).read_text())
+    return m is not None and "unsigned* bar" in m.group(1)
+
+
+# the generic_epilogue_vjp C entry without barrier words (its partials and
+# tie counts zeroed by the caller)
+PARENT_GVJP_ARGS = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                    ctypes.c_void_p, ctypes.c_void_p)
+
+
+def split_blocks(n, size=4096):
+    """Block sizes of an output of ``n`` entries cut into blocks of about
+    ``size`` (K10's timing table: the work does not depend on the cut)."""
+    return [len(x) for x in np.array_split(np.arange(n), max(1, n // size))]
+
+
+def ablate_vjp(libs, in_turns, stream, dev, parent) -> dict:
+    """:func:`ablate`'s part for the backward kernels of the abelian frozen
+    fixed points, each in CUDA graphs beside its bound: K9's
+    ``frozen_epilogue_vjp`` on phase 8's frozen-move layout (C' and T',
+    237,601 entries) and K10's ``generic_epilogue_vjp`` on
+    :data:`GEN_EPI_SEGMENTS` (six outputs, 507,472 entries), both at
+    ``sg_norm`` False and True, with their timing copies
+    (:data:`VJP_COPIES`, K9's :data:`FROZEN_VJP_COPIES`) and the eager call
+    through this checkout's wrapper;
+    ``adjoint_commit`` at the C4v D=8 adjoint's sizes (the site, C and T)
+    and ``sweep_commit`` at the 2-site env (1,989,344 entries).  The kernels
+    of the checkout ``parent`` (if not None) first and last in the turns,
+    called with the arguments their own sources declare (three launches and
+    their tie counts zeroed before the call, as its wrappers did).  The
+    first call of every library but the timing copies is held to the twin:
+    ``sg_norm=True`` bit for bit, False to 1e-12; barrier words left 0."""
+    from tpeps_torch.kernels import frozen as kfrozen
+    from tpeps_torch.kernels import frozen_generic as kgen
+
+    gen = torch.Generator(device=dev).manual_seed(14)
+    rnd = lambda n: torch.randn(n, generator=gen, device=dev, dtype=torch.float64)
+    src = lambda key: (Path(parent) if key == "parent" else Path(__file__).resolve().parent) / \
+        "tpeps_torch" / "csrc"
+    parent_key = [("parent", "parent")] if parent is not None else []
+    keys = parent_key + list(VJP_COPIES.items())
+    checked = lambda key: key in ("parent", 0)  # the timing copies compute nothing right
+    part = torch.empty(64 * 1024, dtype=torch.float64, device=dev)
+    rec = {}
+
+    C, T, pC, pT, (bC, bT, nbC, nbT), na = frozen_layout(dev)
+    nC, nT = C.numel(), T.numel()
+    rawC, rawT, gC, gT = rnd(nC), rnd(nT), rnd(nC), rnd(nT)
+    xC, xT = torch.empty_like(rawC), torch.empty_like(rawT)
+    for sg in (False, True):
+        ref = kfrozen.frozen_epilogue_vjp_twin(rawC, rawT, pC, pT, gC, gT, bC, bT, nbC, nbT, sg)
+        calls = {}
+        for key, label in parent_key + list(FROZEN_VJP_COPIES.items()):
+            fn = libs["frozen_commit.cu", key].tpeps_frozen_epilogue_vjp_f64
+            one_launch = takes_bar(src(key) / "frozen_commit.cu", "tpeps_frozen_epilogue_vjp_f64")
+            if one_launch:
+                cnt = torch.empty(nbC + nbT, dtype=torch.int32, device=dev)
+                bar = torch.zeros(256, dtype=torch.int32, device=dev)
+                scratch = lambda cnt=cnt, bar=bar: (cnt.data_ptr(), bar.data_ptr())
+            else:
+                cnt = torch.zeros(nbC + nbT, dtype=torch.int32, device=dev)
+                bar = torch.zeros(1, dtype=torch.int32, device=dev)
+
+                def scratch(cnt=cnt):  # the parent's wrapper zeroed its two tie counts
+                    cnt.zero_()
+                    return cnt.data_ptr(), cnt[nbC:].data_ptr()
+
+            def call(fn=fn, scratch=scratch, sg=sg):
+                err = fn(rawC.data_ptr(), rawT.data_ptr(), pC.data_ptr(), pT.data_ptr(),
+                         gC.data_ptr(), gT.data_ptr(), bC.data_ptr(), bT.data_ptr(), *scratch(),
+                         nbC, nbT, xC.data_ptr(), xT.data_ptr(), part.data_ptr(), nC, nT, int(sg),
+                         stream())
+                if err:
+                    fail(f"frozen_epilogue_vjp launch: CUDA error {err}")
+            if checked(key):
+                xC.fill_(math.nan)
+                xT.fill_(math.nan)
+                call()
+                same = torch.equal(xC, ref[0]) and torch.equal(xT, ref[1])
+                e = max(rel_err(xC, ref[0]), rel_err(xT, ref[1]))
+                # the three launches fused a product into a sum (an FMA): not bit for bit
+                exact = sg and one_launch
+                check((same if exact else e <= TOL[torch.float64]) and int(bar.abs().sum()) == 0,
+                      f"frozen_epilogue_vjp sg_norm={sg} ({label}): the first call is the "
+                      f"twin's (bit-identical {same}, rel err {e:.1e}); barrier words left 0")
+            calls[label] = call
+        ms = in_turns(calls, 20, 5)
+        eager = cuda_ms(lambda sg=sg: kfrozen.frozen_epilogue_vjp(rawC, rawT, pC, pT, gC, gT, bC,
+                                                                  bT, nbC, nbT, sg), reps=20)
+        # raw, partner index, g and xbar 8 bytes an element, the block id 4
+        # (not read with the scale detached)
+        b_ms, _ = bound((32 if sg else 36) * (nC + nT), 8 * (nC + nT), FP64_CC)
+        rec[f"frozen_epilogue_vjp f64 sg_norm={sg}"] = {
+            "ms": ms, "eager_wrapper_ms": eager, "bound_ms": b_ms, "entries": nC + nT}
+        print(f"  frozen_epilogue_vjp f64 sg_norm={sg} (C' {nC}, T' {nT} entries): "
+              + ", ".join(f"{v} {t * 1000:.2f} us" for v, t in ms.items())
+              + f"; eager through the wrapper {eager * 1000:.2f} us; bound {b_ms * 1000:.2f} us"
+              + ("" if sg else "; target <= 10 us"), flush=True)
+    rec["frozen_epilogue_vjp f64 sg_norm=False"]["launches_per_call"] = 1
+
+    da_i, uC, uT = rnd(na), rnd(nC), rnd(nT)
+    calls = {}
+    for key, label in keys[:2] if parent is not None else keys[:1]:
+        fn = libs["frozen_commit.cu", key].tpeps_adjoint_commit_f64
+        st = kfrozen.adjoint_state(torch.zeros_like(da_i), gC, gT, 10**9, 0.0)
+
+        def call(fn=fn, st=st):
+            err = fn(st.da.data_ptr(), da_i.data_ptr(), na, uC.data_ptr(), nC, uT.data_ptr(), nT,
+                     st.scal.data_ptr(), st.ctl.data_ptr(), part.data_ptr(), stream())
+            if err:
+                fail(f"adjoint_commit launch: CUDA error {err}")
+        calls[label] = call
+    ms = in_turns(calls, 20, 5)
+    b_ms, _ = bound(8 * (3 * na + nC + nT), na + 2 * (nC + nT), FP64_CC)
+    rec["adjoint_commit f64"] = {"ms": ms, "bound_ms": b_ms, "entries": [na, nC, nT]}
+    print(f"  adjoint_commit f64 (site {na}, C {nC}, T {nT} entries): "
+          + ", ".join(f"{v} {t * 1000:.2f} us" for v, t in ms.items())
+          + f"; bound {b_ms * 1000:.2f} us", flush=True)
+    del C, T, pC, pT, bC, bT, rawC, rawT, gC, gT, xC, xT, da_i, uC, uT
+
+    seg = kgen.segment_table([(sum(GEN_EPI_SEGMENTS[:i]), split_blocks(n)) for i, n in
+                              enumerate(GEN_EPI_SEGMENTS)], dev)
+    nseg = len(seg.host)
+    raw, g = rnd(seg.numel), rnd(seg.numel)
+    out = torch.empty_like(raw)
+    for sg in (False, True):
+        ref = kgen.generic_epilogue_vjp_twin(raw, g, seg, sg)
+        calls = {}
+        for key, label in keys:
+            fn = libs["frozen_generic.cu", key].tpeps_generic_epilogue_vjp_f64
+            cnt = torch.zeros(seg.nblk, dtype=torch.int32, device=dev)
+            bar = torch.zeros(256, dtype=torch.int32, device=dev)
+            one_launch = takes_bar(src(key) / "frozen_generic.cu",
+                                   "tpeps_generic_epilogue_vjp_f64")
+            if one_launch:
+                scratch = lambda cnt=cnt, bar=bar: (cnt.data_ptr(), bar.data_ptr())
+            else:
+                fn.argtypes = PARENT_GVJP_ARGS
+
+                def scratch(cnt=cnt):  # the parent's wrapper zeroed its tie counts
+                    cnt.zero_()
+                    return (cnt.data_ptr(),)
+
+            def call(fn=fn, scratch=scratch, sg=sg):
+                err = fn(raw.data_ptr(), g.data_ptr(), seg.seg.data_ptr(), nseg,
+                         seg.blk.data_ptr(), part.data_ptr(), *scratch(), int(sg),
+                         out.data_ptr(), stream())
+                if err:
+                    fail(f"generic_epilogue_vjp launch: CUDA error {err}")
+            if checked(key):
+                out.fill_(math.nan)
+                call()
+                same, e = torch.equal(out, ref), rel_err(out, ref)
+                exact = sg and one_launch
+                check((same if exact else e <= TOL[torch.float64]) and int(bar.abs().sum()) == 0,
+                      f"generic_epilogue_vjp sg_norm={sg} ({label}): the first call is the "
+                      f"twin's (bit-identical {same}, rel err {e:.1e}); barrier words left 0")
+            calls[label] = call
+        ms = in_turns(calls, 20, 5)
+        eager = cuda_ms(lambda sg=sg: kgen.generic_epilogue_vjp(raw, g, seg, sg), reps=20)
+        # raw, g and xbar 8 bytes an element, the block id 4 (not read with
+        # the scale detached)
+        b_ms, _ = bound((24 if sg else 28) * raw.numel(), 5 * raw.numel(), FP64_CC)
+        rec[f"generic_epilogue_vjp f64 sg_norm={sg}"] = {
+            "ms": ms, "eager_wrapper_ms": eager, "bound_ms": b_ms, "segments": GEN_EPI_SEGMENTS,
+            "blocks": seg.nblk}
+        print(f"  generic_epilogue_vjp f64 sg_norm={sg} ({nseg} outputs, {raw.numel()} entries, "
+              f"{seg.nblk} blocks): " + ", ".join(f"{v} {t * 1000:.2f} us" for v, t in ms.items())
+              + f"; eager through the wrapper {eager * 1000:.2f} us; bound {b_ms * 1000:.2f} us"
+              + ("" if sg else "; target <= 12 us"), flush=True)
+    rec["generic_epilogue_vjp f64 sg_norm=False"]["launches_per_call"] = 1
+    del raw, g, out
+
+    # the 2-site D=8 chi=160 env (phase 10); the calls alternate two W, so
+    # that every call commits (a repeated W gives dist2 = 0 and ends the loop)
+    n = 1989344
+    Ws = (rnd(n), rnd(n))
+    calls, states = {}, []
+    for key, label in keys[:2] if parent is not None else keys[:1]:
+        fn = libs["frozen_generic.cu", key].tpeps_sweep_commit_f64
+        st = kgen.sweep_state(rnd(n), 10**9, 0.0)
+        states.append(st)
+
+        def call(fn=fn, st=st, turn=itertools.cycle(Ws)):
+            err = fn(st.S.data_ptr(), next(turn).data_ptr(), n, st.dist2.data_ptr(),
+                     st.conv_tol.data_ptr(), st.ctl.data_ptr(), part.data_ptr(), stream())
+            if err:
+                fail(f"sweep_commit launch: CUDA error {err}")
+        calls[label] = call
+    ms = in_turns(calls, 20, 5)
+    check(all(int(st.ctl[1]) == 0 for st in states), "sweep_commit's timing loops never ended")
+    b_ms, _ = bound(8 * 3 * n, 3 * n, FP64_CC)
+    rec["sweep_commit f64"] = {"ms": ms, "bound_ms": b_ms, "entries": n}
+    print(f"  sweep_commit f64 ({n} entries): "
           + ", ".join(f"{v} {t * 1000:.2f} us" for v, t in ms.items())
           + f"; bound {b_ms * 1000:.2f} us", flush=True)
     return rec

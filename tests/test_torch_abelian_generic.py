@@ -26,6 +26,7 @@ JAX package's ``_normalized`` / ``_env_dist2`` / ``jax.vjp(_normalized)``
 1e-15 / 1e-12; JSON byte for byte; the entry point's FINAL energy 1e-10.
 """
 
+import functools
 import importlib.util
 import json
 import sys
@@ -51,6 +52,7 @@ from tpeps.models.abelian.j1j2 import J1J2_ABELIAN as J_J1J2_ABELIAN
 from tpeps.sym import io as j_io
 from tpeps.sym.tensor import AbelianTensor as J_AbelianTensor
 from tpeps.sym.tensor import leg as j_leg
+from test_torch_abelian import _block_reduce
 from tpeps_torch.config import CtmArgs
 from tpeps_torch.ctm.generic_abelian import ctmrg, frozen, rdm
 from tpeps_torch.ctm.generic_abelian import env as g_env
@@ -451,6 +453,179 @@ def test_generic_epilogue_vjp_twin_matches_jax(sg_norm):
         (ref,) = jax.vjp(lambda x: j_frozen._normalized(x, sg_norm), tj)[1](cj)
         ref = port(ref).data
         assert float((got[so:so + n] - ref).abs().max()) <= 1e-12 * float(ref.abs().max())
+
+
+def _generic_vjp_partition(raw, g, seg, sg_norm, grid, nt=64, keep=8):
+    """A model, in numpy scalars of the inputs' dtype, of how
+    ``csrc/frozen_generic.cu``'s ``vjp_kernel`` splits the work: the
+    segments one index space, thread ``tid`` of ``grid`` x ``nt`` taking
+    every stride-th element, its first ``keep`` values and cotangents kept
+    across the barriers and the rest read again; the tie counts (scratch as
+    ``torch.empty`` leaves it) zeroed by the threads' grid-stride shares of
+    each segment's blocks; per segment the max (order-free, a NaN the
+    largest, as the kernel's max of |x|'s bits); the dot g.x per warp of 32
+    lanes and step, a segmented scan over the warp's 32 consecutive elements
+    leaving each run of one segment's sum in its last lane, added into a
+    slot a warp and segment in step order, the warps' slots in order
+    into a partial a block and segment, and after the first barrier the
+    partials of a segment summed by the block (thread t the partials t, t +
+    nt, ... in order, then a butterfly and the warps in order); the ties
+    counted per layout block (a
+    block's first tie adds the block to its segment's tied-block count) and
+    every element off the maximum written; after the second barrier (the
+    scale differentiated) the tied ones; the last block done reading zeroes
+    the words.  It checks the index coverage and the orders of the split,
+    not the kernel, which runs only on the card (chip_smoke.py's
+    ``generic_vjp_checks``).  Returns ``(xbar, hits, words)``."""
+    dt = raw.numpy().dtype.type
+    zero, one = dt(0), dt(1)
+    x_all, g_all, blk = raw.numpy(), g.numpy(), seg.blk.numpy()
+    host = seg.host.tolist()
+    beg = np.concatenate([[0], np.cumsum([r[2] for r in host])])
+    n, stride, diff, nq = int(beg[-1]), grid * nt, not sg_norm, len(host)
+    where = lambda e: int(np.searchsorted(beg, e, side="right") - 1)
+    cnt = np.full(max(seg.nblk, 1), -7, dtype=np.int64)  # torch.empty's garbage
+    words = {"max": [zero] * nq, "ntb": [0] * nq, "read": 0}
+
+    def load(e):
+        q = where(e)
+        off = e - int(beg[q])
+        return q, off, x_all[host[q][0] + off], g_all[host[q][1] + off]
+
+    if diff:
+        for tid in range(grid * nt):
+            for q in range(nq):
+                for b in range(host[q][3] + tid, host[q][4], stride):
+                    cnt[b] = 0
+    kept, parts = {}, []
+    for b in range(grid):  # (a)
+        slot = np.zeros((nq, nt // 32), dtype=dt)
+        for t in range(nt):
+            for r, e in enumerate(range(b * nt + t, n, stride)):
+                q, off, x, gv = load(e)
+                if r < keep:
+                    kept[e] = (q, off, x, gv)
+                words["max"][q] = np.maximum(words["max"][q], abs(x))
+        for w in range(nt // 32):
+            e0 = b * nt + 32 * w
+            for r in range(0, (n - e0 + stride - 1) // stride if e0 < n else 0):
+                lanes = [load(e) if e < n else (-1, 0, zero, zero)
+                         for e in range(e0 + r * stride, e0 + r * stride + 32)]
+                q = [x[0] for x in lanes]
+                d = [x[3] * x[2] for x in lanes]
+                for o in (1, 2, 4, 8, 16):  # the segmented Hillis-Steele scan
+                    d = [d[i] + d[i - o] if i >= o and q[i - o] == q[i] else d[i]
+                         for i in range(32)]
+                for i in range(32):  # each run's last lane
+                    if q[i] >= 0 and (i == 31 or q[i + 1] != q[i]):
+                        slot[q[i], w] = slot[q[i], w] + d[i]
+        parts.append([functools.reduce(np.add, slot[q, 1:], slot[q, 0]) for q in range(nq)])
+    m = words["max"]  # (b): every block the same maxima and dot sums
+    inv = [one / x for x in m]
+    coef = []
+    for q in range(nq):
+        threads = [zero] * nt
+        for b in range(grid):
+            threads[b % nt] = threads[b % nt] + parts[b][q]
+        coef.append(_block_reduce(threads, np.add) * inv[q] * inv[q])
+    tied = set()
+    if diff:
+        for e in range(n):
+            q, off, x, _ = kept[e] if e in kept else load(e)
+            if abs(x) == m[q]:
+                tied.add(e)
+                k = blk[host[q][0] + off]
+                cnt[k] += 1
+                if cnt[k] == 1:
+                    words["ntb"][q] += 1
+    out, hits = np.empty_like(x_all), np.zeros(n, dtype=np.int64)
+
+    def store(e, w):
+        q, off, x, gv = kept[e] if e in kept else load(e)
+        s = dt(np.sign(x))
+        out[host[q][0] + off] = gv * inv[q] - coef[q] * w * s if diff else gv * inv[q]
+        hits[e] += 1
+
+    for e in range(n):  # (b): off the maximum
+        if e not in tied:
+            store(e, zero)
+    for e in sorted(tied):  # (c), after the second barrier
+        q, off, _, _ = kept[e] if e in kept else load(e)
+        store(e, one / (dt(words["ntb"][q]) * dt(cnt[blk[host[q][0] + off]])))
+    words.update(max=[zero] * nq, ntb=[0] * nq, read=0)  # the last block's zeroing
+    return torch.from_numpy(out), hits, words
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("keep", [1, 8], ids=["past_keep", "all_kept"])
+@pytest.mark.parametrize("case", ["random", "ties", "all_equal", "nan"])
+def test_generic_vjp_partition_is_the_twin(dtype, keep, case):
+    """The one-launch ``generic_epilogue_vjp``'s partition on six outputs of
+    odd lengths in uneven blocks (81; 700 + 29; one element; 40 + 41; 729;
+    13), written from env slots in another order, 3 blocks of 64 threads
+    (two warps; the outputs' boundaries fall inside warps): with 1 value kept
+    a thread most are read again, with 8 nearly all are kept.  ``ties``:
+    output 1's maximum tied twice in its first block (+) and once in its
+    second (-); ``all_equal``: output 3 all equal (every entry tied);
+    ``nan``: a NaN in output 4 (that output's cotangent all NaN).  Both scale
+    modes: every element written once, detached bit-identical to the twin,
+    differentiated within 1e-12 (f64) or 1e-5 (f32) relative (the dot's
+    order), NaN where the twin's; the words left zero."""
+    lens = ((81,), (700, 29), (1,), (40, 41), (729,), (13,))
+    sizes = [sum(x) for x in lens]
+    dst = np.cumsum([0] + sizes[::-1])[:-1][::-1]  # the slots in reverse order
+    seg = kgen.segment_table([(int(d), list(b)) for d, b in zip(dst, lens)], CPU)
+    rng = np.random.RandomState(14)
+    raw = torch.from_numpy(rng.rand(seg.numel) - 0.5).to(dtype)
+    g = torch.from_numpy(rng.rand(seg.numel) - 0.5).to(dtype)
+    if case == "ties":
+        raw[81 + 3] = raw[81 + 650] = 2.0
+        raw[81 + 710] = -2.0
+    elif case == "all_equal":
+        raw[811:892] = 0.25
+    elif case == "nan":
+        raw[892 + 300] = float("nan")
+    for sg in (False, True):
+        got, hits, words = _generic_vjp_partition(raw, g, seg, sg, grid=3, keep=keep)
+        want = kgen.generic_epilogue_vjp(raw, g, seg, sg)  # CPU tensors: the twin
+        assert bool((hits == 1).all())
+        assert all(not any(v) for v in (words["max"], words["ntb"])) and words["read"] == 0
+        assert torch.equal(got.isnan(), want.isnan())
+        assert int(want.isnan().sum()) == (729 if case == "nan" else 0)
+        got, want = got.nan_to_num(0.0), want.nan_to_num(0.0)
+        if sg:
+            assert torch.equal(got, want)
+        else:
+            tol = 1e-12 if dtype == torch.float64 else 1e-5
+            assert float((got - want).abs().max()) <= tol * float(want.abs().max())
+
+
+@pytest.mark.parametrize("sg_norm", [True, False], ids=["scale_detached", "scale_differentiated"])
+def test_vjp_twins_give_nan_as_jax(sg_norm):
+    """A NaN in a tiny tensor: ``jax.vjp`` of the JAX package's
+    ``_normalized(t, sg_norm)`` gives NaN for every entry of its cotangent,
+    and so do the two epilogue VJPs' twins (K10's on the tensor as one
+    output, K9's shared scale backward; K9's whole twin on the tensor as C'
+    beside a finite T', whose cotangent stays finite)."""
+    rng = np.random.RandomState(6)
+    t = _outputs(rng, 1)[0]
+    blocks = {q: np.asarray(b).copy() for q, b in t.blocks.items()}
+    blocks[sorted(blocks)[1]].flat[0] = np.nan
+    t = t.copy_with({q: jnp.asarray(b) for q, b in blocks.items()})
+    ct = t.copy_with({q: jnp.asarray(rng.rand(*np.shape(b)) - 0.5) for q, b in blocks.items()})
+    (ref,) = jax.vjp(lambda x: j_frozen._normalized(x, sg_norm), t)[1](ct)
+    assert all(np.isnan(np.asarray(b)).all() for b in ref.blocks.values())
+    tt, gt = port(t), port(ct)
+    seg = _table([t], [0])
+    assert bool(kgen.generic_epilogue_vjp_twin(tt.data, gt.data, seg, sg_norm).isnan().all())
+    nb = len(tt.struct.keys)
+    assert bool(kfrozen.scale_vjp_twin(tt.data, gt.data, seg.blk, nb, sg_norm).isnan().all())
+    none = torch.full_like(seg.blk, -1, dtype=torch.int64)
+    fT = torch.from_numpy(rng.rand(7) - 0.5)
+    xC, xT = kfrozen.frozen_epilogue_vjp_twin(tt.data, fT, none, torch.full((7,), -1), gt.data,
+                                              fT, seg.blk, torch.zeros(7, dtype=torch.int32),
+                                              nb, 1, sg_norm)
+    assert bool(xC.isnan().all()) and not bool(xT.isnan().any())
 
 
 def test_adjoint_commit_on_generic_buffers(capfd):

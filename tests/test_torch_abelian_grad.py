@@ -32,7 +32,7 @@ import tpeps  # noqa: F401  (enables x64)
 import jax
 import jax.numpy as jnp
 
-from test_torch_abelian import PHYS, c4v_state
+from test_torch_abelian import PHYS, _block_reduce, c4v_state
 from test_torch_sym import DOT_CASES, jrandom, port
 from tpeps.ctm.c4v_abelian import ctmrg as j_ctmrg
 from tpeps.ctm.c4v_abelian import env as j_env
@@ -50,6 +50,7 @@ from tpeps_torch.ctm.c4v_abelian import env as c4v_env
 from tpeps_torch.ipeps.ipeps_abelian import IPEPS_ABELIAN, make_c4v_symm_A1_abelian
 from tpeps_torch.kernels.frozen import (adjoint_commit_twin, adjoint_state,
                                         frozen_epilogue_vjp_twin, scale_vjp_twin, tie_weights)
+from tpeps_torch.kernels.frozen import frozen_epilogue_vjp
 from tpeps_torch.linalg.svd import fix_svd_signs, svd_reg
 from tpeps_torch.models.abelian.j1j2 import J1J2_ABELIAN
 from tpeps_torch.sym import frozen as t_sfrozen
@@ -367,6 +368,194 @@ def test_frozen_epilogue_vjp_twin_matches_jax(corner):
     y = frozen._Epilogue.apply(rC, rT, pC, pT, bC, bT, nb, False)
     g = torch.autograd.grad(y, (rC, rT), (port(cC).data, port(cT).data))
     assert torch.equal(g[0], xC) and torch.equal(g[1], xT)
+
+
+def _block_layout(keys, shape):
+    """Flat blocks ``keys`` (charge pairs (a, b)) of shapes ``shape(a, b)``
+    laid out one after another: per element its block id and the flat index
+    of its transpose partner, element (i, .., j) of block (a, b) <-> (j, ..,
+    i) of block (b, a) (-1 where that block is absent), as ``partner_index``
+    builds them for C's (1, 0) and T's (3, 1, 2, 0)."""
+    offs, off = {}, 0
+    for k in keys:
+        offs[k] = off
+        off += int(np.prod(shape(*k)))
+    p, blk = np.full(off, -1, dtype=np.int64), np.zeros(off, dtype=np.int32)
+    for b, (x, y) in enumerate(keys):
+        n = int(np.prod(shape(x, y)))
+        blk[offs[x, y]:offs[x, y] + n] = b
+        if (y, x) in offs:
+            rank = len(shape(x, y))
+            axes = (rank - 1, *range(1, rank - 1), 0)
+            src = np.arange(n).reshape(shape(y, x)).transpose(axes)
+            p[offs[x, y]:offs[x, y] + n] = offs[y, x] + src.reshape(-1)
+    return torch.from_numpy(p), torch.from_numpy(blk), len(keys)
+
+
+def _c4v_layout():
+    """C: blocks (a, b) of charge sizes 2, 3, 4 (81 entries); T: blocks of
+    shape (s_a, 2, 2, s_b) without (2, 0), so that block (0, 2) has no
+    partner (292 entries)."""
+    sz = (2, 3, 4)
+    keys = [(a, b) for a in range(3) for b in range(3)]
+    C = _block_layout(keys, lambda a, b: (sz[a], sz[b]))
+    T = _block_layout([k for k in keys if k != (2, 0)], lambda a, b: (sz[a], 2, 2, sz[b]))
+    return C, T
+
+
+def _epilogue_vjp_partition(rawC, rawT, pC, pT, gC, gT, bC, bT, nbC, nbT, sg_norm, grid,
+                            nt=64, keep=8):
+    """A model, in numpy scalars of the inputs' dtype, of how
+    ``csrc/frozen_commit.cu``'s ``epilogue_vjp_kernel`` splits the work: C
+    and T one index space, thread ``tid`` of ``grid`` x ``nt`` taking every
+    stride-th element, the first ``keep`` z, g and partner's g a thread kept
+    across the barriers and the rest loaded again; the tie counts (scratch
+    as ``torch.empty`` leaves it) zeroed by the threads' grid-stride shares;
+    per block the maxima (order-free, a NaN the largest, as the kernel's max
+    of |z|'s bits) and the dot partials (butterfly, then the warps in
+    order); after the first barrier every block's dot sums in one fixed
+    order, the ties counted per layout block (the first increment of a
+    block's count adds the block to its tensor's tied-block count) and every
+    element off the maximum written; after the second (the scale
+    differentiated) the tied ones; the last block done reading zeroes the
+    barrier words.  It checks the index coverage and the orders of the
+    split, not the kernel, which runs only on the card (chip_smoke.py's
+    ``frozen_vjp_checks``).  Returns ``(xC, xT, hits, words)``."""
+    dt = rawC.numpy().dtype.type
+    zero, half, one = dt(0), dt(0.5), dt(1)
+    rC, rT, qC, qT, hC, hT = (t.numpy() for t in (rawC, rawT, pC, pT, gC, gT))
+    kC, kT = bC.numpy(), bT.numpy()
+    nC, n = rC.size, rC.size + rT.size
+    stride, diff = grid * nt, not sg_norm
+    cnt = np.full(nbC + nbT, -7, dtype=np.int64)  # torch.empty's garbage
+    words = {"max": [zero, zero], "ntb": [0, 0], "read": 0}
+
+    def load(e):
+        raw, p, g, i = (rC, qC, hC, e) if e < nC else (rT, qT, hT, e - nC)
+        q = int(p[i])
+        return half * (raw[i] + (raw[q] if q >= 0 else zero)), g[i], \
+            (g[q] if q >= 0 else zero), q >= 0
+
+    def count_at(e, partner=False):
+        c = e < nC
+        i = e if c else e - nC
+        if partner:
+            i = int((qC if c else qT)[i])
+        return int(kC[i]) if c else nbC + int(kT[i])
+
+    if diff:
+        for tid in range(grid * nt):
+            for b in range(tid, nbC + nbT, stride):
+                cnt[b] = 0
+    kept, parts = {}, []
+    for b in range(grid):  # (a)
+        acc = {k: [] for k in ("mC", "mT", "dC", "dT")}
+        for t in range(nt):
+            m, d = [zero, zero], [zero, zero]
+            for r, e in enumerate(range(b * nt + t, n, stride)):
+                z, g, gp, h = load(e)
+                if r < keep:
+                    kept[e] = (z, g, gp, h)
+                m[e >= nC] = np.maximum(m[e >= nC], abs(z))
+                d[e >= nC] = d[e >= nC] + g * z
+            for k, v in zip(acc, (*m, *d)):
+                acc[k].append(v)
+        for i in (0, 1):
+            words["max"][i] = np.maximum(words["max"][i],
+                                         _block_reduce(acc[("mC", "mT")[i]], np.maximum))
+        parts.append([_block_reduce(acc[k], np.add) for k in ("dC", "dT")])
+    m = words["max"]  # (b): every block the same maxima and dot sums
+    inv = [one / m[0], one / m[1]]
+    coef = [zero, zero]
+    for i in (0, 1):
+        sums = [zero] * nt  # thread b % nt adds partial b, then the block
+        for b in range(grid):
+            sums[b % nt] = sums[b % nt] + parts[b][i]
+        coef[i] = _block_reduce(sums, np.add) * inv[i] * inv[i]
+    tied = set()
+    if diff:
+        for e in range(n):
+            if abs((kept[e] if e in kept else load(e))[0]) == m[e >= nC]:
+                tied.add(e)
+                k = count_at(e)
+                cnt[k] += 1
+                if cnt[k] == 1:
+                    words["ntb"][e >= nC] += 1
+    out, hits = [np.empty_like(rC), np.empty_like(rT)], np.zeros(n, dtype=np.int64)
+
+    def store(e, w, wp):
+        z, g, gp, h = kept[e] if e in kept else load(e)
+        c = int(e >= nC)
+        s = dt(np.sign(z))
+        zb = g * inv[c] - coef[c] * w * s if diff else g * inv[c]
+        zp = gp * inv[c] - coef[c] * wp * s if diff else gp * inv[c]
+        out[c][e - c * nC] = half * (zb + (zp if h else zero))
+        hits[e] += 1
+
+    for e in range(n):  # (c)
+        if e not in tied:
+            store(e, zero, zero)
+    for e in sorted(tied):  # (d), after the second barrier
+        c = int(e >= nC)
+        w = one / (dt(words["ntb"][c]) * dt(cnt[count_at(e)]))
+        wp = one / (dt(words["ntb"][c]) * dt(cnt[count_at(e, True)])) \
+            if (kept[e] if e in kept else load(e))[3] else zero
+        store(e, w, wp)
+    words["read"] = grid  # every block has read: the last zeroes the words
+    words.update(max=[zero, zero], ntb=[0, 0], read=0)
+    return torch.from_numpy(out[0]), torch.from_numpy(out[1]), hits, words
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("keep", [1, 4], ids=["past_keep", "all_kept"])
+@pytest.mark.parametrize("case", ["random", "ties", "all_equal", "one_element", "nan"])
+def test_epilogue_vjp_partition_is_the_twin(dtype, keep, case):
+    """The one-launch ``frozen_epilogue_vjp``'s partition on uneven layout
+    blocks (:func:`_c4v_layout`, 81 + 292 entries, some without a partner),
+    3 blocks of 64 threads (two warps): with 1 value kept a thread most are
+    loaded again after the barriers, with 4 (the kernel's) all are kept.  ``ties``: C's
+    maximum tied by a partner pair inside one block (+) and by one across
+    two blocks (-), T's by a pair across two blocks (+) and a partnerless
+    entry (-); ``all_equal``: every symmetrized entry 1 (every entry tied);
+    ``one_element``: a C of one entry, its own partner; ``nan``: a NaN in C'
+    (C's cotangent all NaN).  Both scale modes: every element written once,
+    detached bit-identical to the twin, differentiated within 1e-12 (f64)
+    or 1e-5 (f32) relative (the dot's order), NaN where the twin's; the
+    barrier words left zero."""
+    (pC, bC, nbC), (pT, bT, nbT) = _c4v_layout()
+    rng = np.random.RandomState(14)
+    t = lambda n: torch.from_numpy(rng.rand(n) - 0.5).to(dtype)
+    rawC, rawT, gC, gT = t(len(pC)), t(len(pT)), t(len(pC)), t(len(pT))
+    if case == "ties":
+        e = 1  # (0, 1) of block (0, 0): its partner (1, 0) is in the same block
+        rawC[e] = rawC[pC[e]] = 3.0
+        e = int(torch.nonzero((bC == 5) & (pC >= 0))[2])  # in block (1, 2), partner in (2, 1)
+        rawC[e] = rawC[pC[e]] = -3.0
+        e = int(torch.nonzero(bT == 1)[3])  # in block (0, 1), partner in (1, 0)
+        rawT[e] = rawT[pT[e]] = 3.0
+        rawT[int(torch.nonzero(pT < 0)[4])] = -6.0  # no partner: z = -3
+    elif case == "all_equal":
+        rawC, rawT = (torch.where(p >= 0, 1.0, 2.0).to(dtype) for p in (pC, pT))
+    elif case == "one_element":
+        rawC, gC, pC, bC, nbC = t(1), t(1), torch.zeros(1, dtype=torch.int64), \
+            torch.zeros(1, dtype=torch.int32), 1
+    elif case == "nan":
+        rawC[7] = float("nan")
+    for sg in (False, True):
+        args = (rawC, rawT, pC, pT, gC, gT, bC, bT, nbC, nbT, sg)
+        xC, xT, hits, words = _epilogue_vjp_partition(*args, grid=3, keep=keep)
+        ref = frozen_epilogue_vjp(*args)  # CPU tensors: the twin
+        assert bool((hits == 1).all())
+        assert words == {"max": [0, 0], "ntb": [0, 0], "read": 0}
+        for got, want in zip((xC, xT), ref):
+            assert torch.equal(got.isnan(), want.isnan())
+            got, want = got.nan_to_num(0.0), want.nan_to_num(0.0)
+            if sg:
+                assert torch.equal(got, want)
+            else:
+                tol = 1e-12 if dtype == torch.float64 else 1e-5
+                assert float((got - want).abs().max()) <= tol * float(want.abs().max())
+        assert bool(xC.isnan().all()) == (case == "nan") and not bool(xT.isnan().any())
 
 
 # (lambda_C, lambda_T, |ybar_T| / |ybar_C|, adjoint_max_iter, expected iterations,

@@ -1,7 +1,7 @@
 // Helpers of the cooperative kernels (t_epilogue.cu, frozen_commit.cu,
-// frozen_generic.cu): the grid barrier, the grid that fits on the card at
-// once, and |x| as bits that order like the values (for an order-free atomic
-// max of non-negative floats).
+// frozen_generic.cu): the grid barrier (whole, or in two halves), the grid
+// that fits on the card at once, |x| as bits that order like the values (for an order-free atomic
+// max of non-negative floats), and the two epilogue VJPs' arithmetic.
 #pragma once
 #include <cuda_runtime.h>
 #include <math.h>
@@ -21,6 +21,25 @@ __device__ void grid_barrier(unsigned* bar) {
       bar[0] = 0u;
       bar[1] = 0u;
     }
+  }
+  __syncthreads();
+}
+
+// a grid barrier in two halves on an arrival counter c of its own: every
+// block arrives, after a block-wide __syncthreads of the caller's (the
+// block's writes before it visible to those that wait), and only the blocks
+// that read the others' writes wait; the caller resets c once every block
+// has arrived and none waits (the last block done, say)
+__device__ void grid_arrive(unsigned* c) {
+  if (threadIdx.x == 0) {
+    __threadfence();
+    atomicAdd(c, 1u);
+  }
+}
+__device__ void grid_wait(unsigned* c) {
+  if (threadIdx.x == 0) {
+    while (*reinterpret_cast<volatile unsigned*>(c) < gridDim.x) __nanosleep(32);
+    __threadfence();
   }
   __syncthreads();
 }
@@ -57,6 +76,25 @@ __device__ __forceinline__ double from_bits<double>(unsigned long long b) {
 template <>
 __device__ __forceinline__ float from_bits<float>(unsigned long long b) {
   return __uint_as_float(static_cast<unsigned>(b));
+}
+
+// torch.sign: +-1, a zero or a NaN as it is
+template <typename T>
+__device__ __forceinline__ T sgn(T z) {
+  return z > T(0) ? T(1) : z < T(0) ? T(-1) : z;
+}
+
+// a product rounded on its own, never fused with a following sum into an
+// FMA (the twin rounds every product)
+__device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
+__device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
+
+// the cotangent of z for the cotangent g of y = z * (1 / max|z|):
+// g/m - (coef w) sign(z), coef = sum g.z / m^2, w the element's share of the
+// max's derivative (0 off the maximum), in the twin's order
+template <typename T>
+__device__ __forceinline__ T scale_vjp(T g, T inv, T coef, T w, T s) {
+  return mul_rn(g, inv) - mul_rn(mul_rn(coef, w), s);
 }
 
 }  // namespace

@@ -27,7 +27,8 @@
 // their committed values (all loaded at once, beside the done flag, which
 // is tested before any write) and folds all into its maxima of |C| and |T|;
 // each block adds its two maxima to two global ones (an atomic max on |x|'s
-// bits, which order like the values: no order to fix).  (2) A grid barrier
+// bits, which order like the values: no order to fix; a NaN is the maximum,
+// as in the twin).  (2) A grid barrier
 // on two counters of the kernel's own.  (3) Every block reads the two
 // maxima once and scales its elements by the product with 1 / max (as the
 // JAX code does: C and T bit-identical to the plain twin's), forms its
@@ -55,10 +56,27 @@
 //   the blocks whose max ties m, then over the tied elements of each such
 //   block, w = 1 / (n_tied_blocks * n_tied_in_the_block); a symmetrized
 //   off-diagonal maximum appears at least twice, bit for bit, in one block
-//   or in two.  A reduction pass (per grid block: max and sum ybar.z, for C
-//   and T), a pass counting the ties per layout block (integer atomics, so
-//   deterministic; skipped at sg_norm) and an elementwise pass, in which
-//   every grid block first reduces the partials in the same fixed order.
+//   or in two, and an element ties exactly where its partner does.  One
+//   cooperative launch by frozen_commit's design: (a) each thread zeroes its
+//   share of the tie counts, keeps z, ybar, its partner's ybar and index of its
+//   first EV_KEEP elements in registers, folds |z| into the C and T maxima as
+//   bits (a NaN above inf: that tensor's cotangent NaN, as the twin's) and
+//   ybar.z into the dot partials (one a block, warps in order); the maxima meet
+//   as global atomic maxima.  (b) After the grid barrier every block reads the
+//   maxima and sums the dot partials in one fixed order (the same bits in every
+//   block), counts its ties per layout block (integer atomics; a block's first
+//   tie counts the block in its tensor's tied-block count) and (c) writes every
+//   element off the maximum (weight 0), the stores overlapping the wait at (d)
+//   a second barrier, skipped at sg_norm, at which every block arrives and only
+//   those holding a tie wait (coop.cuh's grid_arrive, grid_wait), after which
+//   the elements at the maximum are written (their counts' indices found before
+//   the barrier, the counts read at once).  The last block done reading the
+//   maxima and the counts zeroes them: every launch leaves its words zero.  At
+//   sg_norm the result is the twin's bit for bit (its products are never fused
+//   into an FMA); else the dot's order differs.  Bound: raw, partner index,
+//   ybar and xbar, 32 bytes an element (the partners' values are elements of
+//   the same buffers), and with the scale differentiated its block id, 36:
+//   8.6 MB, 2.6 us at D=8, chi=160.
 //
 // adjoint_commit: one step of the Neumann adjoint's while_loop (:195-206):
 //   abar += abar_i, delta = |u|^2, grew = delta > delta_prev ? grew + 1 : 0,
@@ -74,9 +92,11 @@
 
 #include "coop.cuh"
 
-// frozen_commit's timing copies (results wrong; timing only): 1 no work
+// timing copies (results wrong; timing only): frozen_commit's 1 no work
 // after the done read, 2 no grid barrier, 4 no commit stores, 8 no last
-// block's sum, 16 no partner gather
+// block's sum, 16 no partner gather; frozen_epilogue_vjp's 32 the launch
+// alone, 64 no grid barriers, 128 no stores, 256 no second barrier, 512 no
+// partner gathers
 #ifndef TPEPS_ABLATE
 #define TPEPS_ABLATE 0
 #endif
@@ -84,7 +104,7 @@
 namespace {
 
 constexpr int NT = 256;
-constexpr int GRID = 264;  // frozen_epilogue_vjp's and adjoint_commit's grid
+constexpr int GRID = 264;  // adjoint_commit's grid
 // frozen_commit: threads a block, blocks an SM at most (512 x 1 measured
 // faster than 256 x 1, 2 or 4), values a thread keeps across the barrier,
 // grid at most (its dist2 partials)
@@ -106,16 +126,23 @@ __device__ T block_reduce(T v, bool is_max, T* buf) {
   return r;
 }
 
-// frozen_commit's block reductions of two values at once, in a fixed order:
-// an xor butterfly in each warp (every lane ends with the same bits), then
-// the warps in order; two barriers.  buf: 2 * FC_NT / 32 values.
-template <typename T, bool MAX>
-__device__ __forceinline__ void block_reduce2(T& a, T& b, T* buf) {
+// the FC_NT-thread kernels' block reductions of two values at once (a sum,
+// or a max of |x|'s bits), in a fixed order: an xor butterfly in each warp
+// (every lane ends with the same bits), then the warps in order; two
+// barriers.  buf: 2 * FC_NT / 32 values.
+template <typename V, bool MAX>
+__device__ __forceinline__ V combine(V a, V b) {
+  if constexpr (MAX) return a > b ? a : b;
+  else return a + b;
+}
+
+template <typename V, bool MAX>
+__device__ __forceinline__ void block_reduce2(V& a, V& b, V* buf) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) {
-    const T x = __shfl_xor_sync(0xffffffffu, a, o), y = __shfl_xor_sync(0xffffffffu, b, o);
-    a = MAX ? fmax(a, x) : a + x;
-    b = MAX ? fmax(b, y) : b + y;
+    const V x = __shfl_xor_sync(0xffffffffu, a, o), y = __shfl_xor_sync(0xffffffffu, b, o);
+    a = combine<V, MAX>(a, x);
+    b = combine<V, MAX>(b, y);
   }
   constexpr int NW = FC_NT / 32;
   if ((threadIdx.x & 31) == 0) {
@@ -127,8 +154,8 @@ __device__ __forceinline__ void block_reduce2(T& a, T& b, T* buf) {
   b = buf[NW];
 #pragma unroll
   for (int w = 1; w < NW; ++w) {
-    a = MAX ? fmax(a, buf[w]) : a + buf[w];
-    b = MAX ? fmax(b, buf[NW + w]) : b + buf[NW + w];
+    a = combine<V, MAX>(a, buf[w]);
+    b = combine<V, MAX>(b, buf[NW + w]);
   }
   __syncthreads();
 }
@@ -149,6 +176,7 @@ frozen_commit_kernel(T* __restrict__ C, T* __restrict__ Tt, T* __restrict__ dist
                      const int64_t* __restrict__ pC, const int64_t* __restrict__ pT, int64_t nC,
                      int64_t nT) {
   __shared__ T buf[2 * FC_NT / 32];
+  __shared__ unsigned long long ubuf[2 * FC_NT / 32];
   __shared__ unsigned long long s_g[2];
   __shared__ int last;
   // done (read by every block before the barrier, written after it by the
@@ -161,7 +189,7 @@ frozen_commit_kernel(T* __restrict__ C, T* __restrict__ Tt, T* __restrict__ dist
   // (1) symmetrize; the first KEEP values and their committed ones stay in
   // registers
   T v[KEEP], old[KEEP];
-  T mC = T(0), mT = T(0);
+  unsigned long long mC = 0ull, mT = 0ull;
 #pragma unroll
   for (int r = 0; r < KEEP; ++r) {
     const int64_t e = tid + r * stride;
@@ -169,23 +197,23 @@ frozen_commit_kernel(T* __restrict__ C, T* __restrict__ Tt, T* __restrict__ dist
     if (e < nC) {
       v[r] = (TPEPS_ABLATE & 16) ? rawC[e] : sym_at(rawC, pC, e);
       old[r] = C[e];
-      mC = fmax(mC, fabs(v[r]));
+      mC = max(mC, abs_bits(v[r]));
     } else if (e < n) {
       v[r] = (TPEPS_ABLATE & 16) ? rawT[e - nC] : sym_at(rawT, pT, e - nC);
       old[r] = Tt[e - nC];
-      mT = fmax(mT, fabs(v[r]));
+      mT = max(mT, abs_bits(v[r]));
     }
   }
   for (int64_t e = tid + KEEP * stride; e < n; e += stride) {
-    if (e < nC) mC = fmax(mC, fabs(sym_at(rawC, pC, e)));
-    else mT = fmax(mT, fabs(sym_at(rawT, pT, e - nC)));
+    if (e < nC) mC = max(mC, abs_bits(sym_at(rawC, pC, e)));
+    else mT = max(mT, abs_bits(sym_at(rawT, pT, e - nC)));
   }
   if (done) return;  // the loop has ended: the state stays untouched
-  block_reduce2<T, true>(mC, mT, buf);
+  block_reduce2<unsigned long long, true>(mC, mT, ubuf);
   unsigned long long* gmax = reinterpret_cast<unsigned long long*>(bar + 2);
   if (threadIdx.x == 0) {
-    atomicMax(gmax, abs_bits(mC));
-    atomicMax(gmax + 1, abs_bits(mT));
+    atomicMax(gmax, mC);
+    atomicMax(gmax + 1, mT);
   }
   // (2)
   if (!(TPEPS_ABLATE & 2)) grid_barrier(bar);
@@ -255,130 +283,244 @@ int launch(T* C, T* Tt, T* dist2, const double* conv_tol, int* ctl, T* part, uns
 
 // ---- frozen_epilogue_vjp ---------------------------------------------------
 
-// per block of the grid, the partial max of |z| and the partial sum g.z of
-// one tensor: out[b] and out[GRID + b]
+// the symmetrized z of element e of the index space C, T (raw's value and
+// its partner's, the partner's z being the same bits), its cotangent g, its
+// partner's (0 where there is none) and the partner's index in its tensor
+// (-1: none)
 template <typename T>
-__device__ void epi_local(const T* __restrict__ raw, const int64_t* __restrict__ partner,
-                          const T* __restrict__ g, int64_t n, T* buf, T* out) {
-  T m = T(0), d = T(0);
-  const int64_t stride = static_cast<int64_t>(GRID) * NT;
-  for (int64_t e = static_cast<int64_t>(blockIdx.x) * NT + threadIdx.x; e < n; e += stride) {
-    const T z = sym_at(raw, partner, e);
-    m = fmax(m, fabs(z));
-    d += g[e] * z;
-  }
-  m = block_reduce(m, true, buf);
-  d = block_reduce(d, false, buf);
-  if (threadIdx.x == 0) {
-    out[blockIdx.x] = m;
-    out[GRID + blockIdx.x] = d;
-  }
+__device__ __forceinline__ void vjp_load(int64_t e, int64_t nC, const T* __restrict__ rawC,
+                                         const T* __restrict__ rawT,
+                                         const int64_t* __restrict__ pC,
+                                         const int64_t* __restrict__ pT,
+                                         const T* __restrict__ gC, const T* __restrict__ gT,
+                                         T& z, T& g, T& gp, int64_t& p) {
+  const bool c = e < nC;
+  const int64_t i = c ? e : e - nC;
+  const T* raw = c ? rawC : rawT;
+  const T* gg = c ? gC : gT;
+  p = (c ? pC : pT)[i];
+  const int64_t j = (TPEPS_ABLATE & 512) ? i : p;  // the timing copy without gathers
+  z = T(0.5) * (raw[i] + (p >= 0 ? raw[j] : T(0)));
+  g = gg[i];
+  gp = p >= 0 ? gg[j] : T(0);
 }
 
-template <typename T>
-__device__ T reduce_parts(const T* __restrict__ part, bool is_max, T* buf) {
-  T v = T(0);
-  for (int b = threadIdx.x; b < GRID; b += NT) v = is_max ? fmax(v, part[b]) : v + part[b];
-  return block_reduce(v, is_max, buf);
+// the index in cnt (C's layout blocks, then T's) of the tie count of entry i
+// of C (c) or of T
+__device__ __forceinline__ int count_index(bool c, int64_t i, const int* __restrict__ bC,
+                                           const int* __restrict__ bT, int nbC) {
+  return c ? bC[i] : nbC + bT[i];
 }
 
+// The words at bar: the grid barrier's two counters, a counter of the blocks
+// done reading, the second barrier's arrivals, the two 64-bit maxima (C, T)
+// and the two tied-block counts; zero before the launch and after it.
+constexpr int EV_BAR_WORDS = 10;
+// values a thread keeps across the barriers (4 x 512 x 132 = 270,336: a D=8
+// chi=160 move's 237,601 all kept)
+constexpr int EV_KEEP = 4;
+
 template <typename T>
-__global__ void __launch_bounds__(NT)
-epilogue_vjp_reduce(const T* __restrict__ rawC, const T* __restrict__ rawT,
+__global__ void __launch_bounds__(FC_NT)
+epilogue_vjp_kernel(const T* __restrict__ rawC, const T* __restrict__ rawT,
                     const int64_t* __restrict__ pC, const int64_t* __restrict__ pT,
-                    const T* __restrict__ gC, const T* __restrict__ gT, int64_t nC, int64_t nT,
-                    T* __restrict__ part) {
-  __shared__ T buf[NT];
-  epi_local(rawC, pC, gC, nC, buf, part);
-  epi_local(rawT, pT, gT, nT, buf, part + 2 * GRID);
-}
-
-// the elements at the max, counted per block of the frozen layout
-template <typename T>
-__device__ void epi_count(const T* __restrict__ raw, const int64_t* __restrict__ partner,
-                          const int* __restrict__ blk, int64_t n, const T* __restrict__ part,
-                          int* __restrict__ cnt, T* buf) {
-  const T m = reduce_parts(part, true, buf);
-  const int64_t stride = static_cast<int64_t>(GRID) * NT;
-  for (int64_t e = static_cast<int64_t>(blockIdx.x) * NT + threadIdx.x; e < n; e += stride)
-    if (fabs(sym_at(raw, partner, e)) == m) atomicAdd(&cnt[blk[e]], 1);
-}
-
-template <typename T>
-__global__ void __launch_bounds__(NT)
-epilogue_vjp_count(const T* __restrict__ rawC, const T* __restrict__ rawT,
-                   const int64_t* __restrict__ pC, const int64_t* __restrict__ pT,
-                   const int* __restrict__ bC, const int* __restrict__ bT, int64_t nC, int64_t nT,
-                   const T* __restrict__ part, int* __restrict__ cntC, int* __restrict__ cntT) {
-  __shared__ T buf[NT];
-  epi_count(rawC, pC, bC, nC, part, cntC, buf);
-  epi_count(rawT, pT, bT, nT, part + 2 * GRID, cntT, buf);
-}
-
-// zbar at element e: g/m minus, at a tie, coef w sign(z) with the block's
-// weight w = 1 / (tied blocks * ties in e's block)
-template <typename T>
-__device__ __forceinline__ T zbar_at(const T* __restrict__ g, const int* __restrict__ blk,
-                                     const int* __restrict__ cnt, int64_t e, T z, T m, T inv,
-                                     T coef, T ntb, int sg_norm) {
-  T v = g[e] * inv;
-  if (!sg_norm && fabs(z) == m) {
-    const T w = T(1) / (ntb * T(cnt[blk[e]]));
-    v -= z > T(0) ? coef * w : -(coef * w);
+                    const T* __restrict__ gC, const T* __restrict__ gT,
+                    const int* __restrict__ bC, const int* __restrict__ bT, int* __restrict__ cnt,
+                    unsigned* __restrict__ bar, int nbC, int nbT, T* __restrict__ xC,
+                    T* __restrict__ xT, T* __restrict__ part, int64_t nC, int64_t nT,
+                    int sg_norm) {
+  __shared__ T buf[2 * FC_NT / 32];
+  __shared__ unsigned long long ubuf[2 * FC_NT / 32];
+  __shared__ unsigned long long s_m[2];
+  if (TPEPS_ABLATE & 32) return;
+  const bool diff = !sg_norm;
+  const int grid = static_cast<int>(gridDim.x);
+  const int64_t n = nC + nT, stride = static_cast<int64_t>(grid) * FC_NT;
+  const int64_t tid = static_cast<int64_t>(blockIdx.x) * FC_NT + threadIdx.x;
+  unsigned long long* gmax = reinterpret_cast<unsigned long long*>(bar + 4);
+  unsigned* ntb = bar + 8;
+  // (a) this thread's share of the tie counts zeroed; z, g, the partner's g
+  // and the partner's index of its first EV_KEEP elements kept in registers,
+  // with the scale differentiated also the index of its tie count (read
+  // with the rest, off the tie path's chain); |z| folded into the maxima as
+  // bits (a NaN above inf) and g.z into the dot partials
+  if (diff)
+    for (int64_t b = tid; b < nbC + nbT; b += stride) cnt[b] = 0;
+  T z[EV_KEEP], g[EV_KEEP], gp[EV_KEEP];
+  int pp[EV_KEEP], ie[EV_KEEP];
+  unsigned long long mC = 0ull, mT = 0ull;
+  T dC = T(0), dT = T(0);
+#pragma unroll
+  for (int r = 0; r < EV_KEEP; ++r) {
+    const int64_t e = tid + r * stride;
+    z[r] = g[r] = gp[r] = T(0);
+    pp[r] = -1;
+    if (e < n) {
+      int64_t q;
+      vjp_load(e, nC, rawC, rawT, pC, pT, gC, gT, z[r], g[r], gp[r], q);
+      pp[r] = static_cast<int>(q);
+      if (diff) ie[r] = count_index(e < nC, e < nC ? e : e - nC, bC, bT, nbC);
+      if (e < nC) {
+        mC = max(mC, abs_bits(z[r]));
+        dC += g[r] * z[r];
+      } else {
+        mT = max(mT, abs_bits(z[r]));
+        dT += g[r] * z[r];
+      }
+    }
   }
-  return v;
-}
-
-template <typename T>
-__device__ void epi_apply(const T* __restrict__ raw, const int64_t* __restrict__ partner,
-                          const T* __restrict__ g, const int* __restrict__ blk,
-                          const int* __restrict__ cnt, int nblk, T* __restrict__ x, int64_t n,
-                          const T* __restrict__ part, int sg_norm, T* buf) {
-  const T m = reduce_parts(part, true, buf);
-  const T inv = T(1) / m;
-  T coef = T(0), ntb = T(1);
-  if (!sg_norm) {
-    coef = reduce_parts(part + GRID, false, buf) * inv * inv;
-    T nb = T(0);
-    for (int b = threadIdx.x; b < nblk; b += NT) nb += cnt[b] > 0 ? T(1) : T(0);
-    ntb = block_reduce(nb, false, buf);
+  for (int64_t e = tid + EV_KEEP * stride; e < n; e += stride) {
+    T zz, gg, unused;
+    int64_t q;
+    vjp_load(e, nC, rawC, rawT, pC, pT, gC, gT, zz, gg, unused, q);
+    if (e < nC) {
+      mC = max(mC, abs_bits(zz));
+      dC += gg * zz;
+    } else {
+      mT = max(mT, abs_bits(zz));
+      dT += gg * zz;
+    }
   }
-  const int64_t stride = static_cast<int64_t>(GRID) * NT;
-  for (int64_t e = static_cast<int64_t>(blockIdx.x) * NT + threadIdx.x; e < n; e += stride) {
-    const int64_t p = partner[e];
-    // z and its partner's z are equal bit for bit; their blocks may differ
-    const T z = sym_at(raw, partner, e);
-    const T zb = zbar_at(g, blk, cnt, e, z, m, inv, coef, ntb, sg_norm);
-    x[e] = T(0.5) * (zb + (p >= 0 ? zbar_at(g, blk, cnt, p, z, m, inv, coef, ntb, sg_norm)
-                                  : T(0)));
+  block_reduce2<unsigned long long, true>(mC, mT, ubuf);
+  if (diff) block_reduce2<T, false>(dC, dT, buf);
+  if (threadIdx.x == 0) {
+    atomicMax(gmax, mC);
+    atomicMax(gmax + 1, mT);
+    if (diff) {
+      part[blockIdx.x] = dC;
+      part[grid + blockIdx.x] = dT;
+    }
   }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(NT)
-epilogue_vjp_apply(const T* __restrict__ rawC, const T* __restrict__ rawT,
-                   const int64_t* __restrict__ pC, const int64_t* __restrict__ pT,
-                   const T* __restrict__ gC, const T* __restrict__ gT, const int* __restrict__ bC,
-                   const int* __restrict__ bT, const int* __restrict__ cntC,
-                   const int* __restrict__ cntT, int nbC, int nbT, T* __restrict__ xC,
-                   T* __restrict__ xT, int64_t nC, int64_t nT, const T* __restrict__ part,
-                   int sg_norm) {
-  __shared__ T buf[NT];
-  epi_apply(rawC, pC, gC, bC, cntC, nbC, xC, nC, part, sg_norm, buf);
-  epi_apply(rawT, pT, gT, bT, cntT, nbT, xT, nT, part + 2 * GRID, sg_norm, buf);
+  if (!(TPEPS_ABLATE & 64)) grid_barrier(bar);
+  // (b) the maxima and, with the scale differentiated, the dot sums (the
+  // partials in one fixed order, the same bits in every block); the ties
+  // counted per layout block, the first tie of a block counting the block
+  // in its tensor's tied-block count
+  if (threadIdx.x < 2) s_m[threadIdx.x] = __ldcg(gmax + threadIdx.x);
+  T sC = T(0), sT = T(0);
+  if (diff) {
+    for (int b = threadIdx.x; b < grid; b += FC_NT) {
+      sC += __ldcg(part + b);
+      sT += __ldcg(part + grid + b);
+    }
+    block_reduce2<T, false>(sC, sT, buf);
+  }
+  __syncthreads();
+  const T mCv = from_bits<T>(s_m[0]), mTv = from_bits<T>(s_m[1]);
+  const T iC = T(1) / mCv, iT = T(1) / mTv;
+  const T coefC = sC * iC * iC, coefT = sT * iT * iT;
+  // the kept elements at the maximum, and the indices of their partners'
+  // tie counts (the partner of a tied entry ties too)
+  unsigned tied = 0u;
+  bool any_tie = false;  // this thread's, past the kept elements too
+  int ip[EV_KEEP];
+  auto count = [&](int64_t e, int i_e) {
+    if (atomicAdd(cnt + i_e, 1) == 0) atomicAdd(ntb + (e < nC ? 0 : 1), 1u);
+  };
+  if (diff) {
+#pragma unroll
+    for (int r = 0; r < EV_KEEP; ++r) {
+      const int64_t e = tid + r * stride;
+      if (e < n && fabs(z[r]) == (e < nC ? mCv : mTv)) {
+        tied |= 1u << r;
+        ip[r] = pp[r] >= 0 ? count_index(e < nC, pp[r], bC, bT, nbC) : -1;
+        count(e, ie[r]);
+      }
+    }
+    for (int64_t e = tid + EV_KEEP * stride; e < n; e += stride) {
+      T zz, gg, gq;
+      int64_t q;
+      vjp_load(e, nC, rawC, rawT, pC, pT, gC, gT, zz, gg, gq, q);
+      if (fabs(zz) == (e < nC ? mCv : mTv)) {
+        any_tie = true;
+        count(e, count_index(e < nC, e < nC ? e : e - nC, bC, bT, nbC));
+      }
+    }
+  }
+  // xbar = (zbar[e] + zbar[partner]) / 2, w and wp the weights of e's and of
+  // its partner's block (0 off the maximum; zbar = g/m - (coef 0) sign(z)
+  // there, as the twin)
+  const T zero = T(0);
+  auto store = [&](int64_t e, T zz, T gg, T gq, bool h, T w, T wp) {
+    const bool c = e < nC;
+    const T inv = c ? iC : iT, coef = c ? coefC : coefT, s = sgn(zz);
+    const T zb = diff ? scale_vjp(gg, inv, coef, w, s) : mul_rn(gg, inv);
+    const T zp = diff ? scale_vjp(gq, inv, coef, wp, s) : mul_rn(gq, inv);
+    if (!(TPEPS_ABLATE & 128)) *(c ? xC + e : xT + (e - nC)) = T(0.5) * (zb + (h ? zp : zero));
+  };
+  // (c) every element off the maximum, the stores overlapping the second
+  // barrier's wait
+#pragma unroll
+  for (int r = 0; r < EV_KEEP; ++r) {
+    const int64_t e = tid + r * stride;
+    if (e < n && !((tied >> r) & 1u)) store(e, z[r], g[r], gp[r], pp[r] >= 0, zero, zero);
+  }
+  for (int64_t e = tid + EV_KEEP * stride; e < n; e += stride) {
+    T zz, gg, gq;
+    int64_t q;
+    vjp_load(e, nC, rawC, rawT, pC, pT, gC, gT, zz, gg, gq, q);
+    if (!diff || fabs(zz) != (e < nC ? mCv : mTv)) store(e, zz, gg, gq, q >= 0, zero, zero);
+  }
+  // (d) with the scale differentiated, the second barrier (every tie
+  // counted; only the blocks holding a tie wait), then the elements at the
+  // maximum: w = 1 / (tied blocks x ties in the block), the counts read at
+  // once
+  if (diff && __syncthreads_or(tied != 0u || any_tie)) {
+    if (!(TPEPS_ABLATE & (64 | 256))) {
+      grid_arrive(bar + 3);
+      grid_wait(bar + 3);
+    }
+    auto weight = [&](bool c, int i) {
+      return i < 0 ? zero : T(1) / (T(__ldcg(ntb + (c ? 0 : 1))) * T(__ldcg(cnt + i)));
+    };
+#pragma unroll
+    for (int r = 0; r < EV_KEEP; ++r) {
+      const int64_t e = tid + r * stride;
+      if ((tied >> r) & 1u)
+        store(e, z[r], g[r], gp[r], pp[r] >= 0, weight(e < nC, ie[r]), weight(e < nC, ip[r]));
+    }
+    for (int64_t e = tid + EV_KEEP * stride; e < n; e += stride) {
+      T zz, gg, gq;
+      int64_t q;
+      vjp_load(e, nC, rawC, rawT, pC, pT, gC, gT, zz, gg, gq, q);
+      const bool c = e < nC;
+      if (fabs(zz) == (c ? mCv : mTv))
+        store(e, zz, gg, gq, q >= 0,
+              weight(c, count_index(c, c ? e : e - nC, bC, bT, nbC)),
+              weight(c, q >= 0 ? count_index(c, q, bC, bT, nbC) : -1));
+    }
+  } else if (diff && !(TPEPS_ABLATE & (64 | 256))) {
+    grid_arrive(bar + 3);
+  }
+  // the last block done reading the maxima and the tied-block counts zeroes
+  // them and the second barrier's arrivals (every block has read them and
+  // arrived by then, and none waits)
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();  // the arrival above counted before this block counts as done
+    if (atomicAdd(bar + 2, 1u) == gridDim.x - 1) {
+      gmax[0] = gmax[1] = 0ull;
+      ntb[0] = ntb[1] = 0u;
+      bar[2] = bar[3] = 0u;
+    }
+  }
 }
 
 template <typename T>
 int epilogue_vjp_launch(const T* rawC, const T* rawT, const int64_t* pC, const int64_t* pT,
-                        const T* gC, const T* gT, const int* bC, const int* bT, int* cntC,
-                        int* cntT, int nbC, int nbT, T* xC, T* xT, T* part, int64_t nC,
+                        const T* gC, const T* gT, const int* bC, const int* bT, int* cnt,
+                        unsigned* bar, int nbC, int nbT, T* xC, T* xT, T* part, int64_t nC,
                         int64_t nT, int sg_norm, cudaStream_t stream) {
-  epilogue_vjp_reduce<T><<<GRID, NT, 0, stream>>>(rawC, rawT, pC, pT, gC, gT, nC, nT, part);
-  if (!sg_norm)
-    epilogue_vjp_count<T><<<GRID, NT, 0, stream>>>(rawC, rawT, pC, pT, bC, bT, nC, nT, part,
-                                                   cntC, cntT);
-  epilogue_vjp_apply<T><<<GRID, NT, 0, stream>>>(rawC, rawT, pC, pT, gC, gT, bC, bT, cntC, cntT,
-                                                 nbC, nbT, xC, xT, nC, nT, part, sg_norm);
+  static int grid = 0;
+  cudaError_t e = cudaSuccess;
+  if (grid == 0)
+    e = coop_grid(epilogue_vjp_kernel<T>, FC_NT, FC_BLOCKS_PER_SM, FC_MAX_GRID, grid);
+  if (e != cudaSuccess) return e;
+  void* args[] = {&rawC, &rawT, &pC, &pT, &gC, &gT, &bC, &bT, &cnt, &bar, &nbC, &nbT,
+                  &xC, &xT, &part, &nC, &nT, &sg_norm};
+  e = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(epilogue_vjp_kernel<T>),
+                                  dim3(grid), dim3(FC_NT), args, 0, stream);
+  if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
 
@@ -433,26 +575,32 @@ extern "C" {
 
 int tpeps_frozen_commit_partials(void) { return FC_MAX_GRID; }
 
-int tpeps_frozen_epilogue_vjp_partials(void) { return 4 * GRID; }
+int tpeps_frozen_epilogue_vjp_partials(void) { return 2 * FC_MAX_GRID; }
+
+// bar: frozen_epilogue_vjp's words (EV_BAR_WORDS), zero before the call and
+// zero after it
+int tpeps_frozen_epilogue_vjp_bar_words(void) { return EV_BAR_WORDS; }
 
 int tpeps_adjoint_commit_partials(void) { return GRID; }
 
+// cnt: nbC + nbT ints of scratch (C's tie counts, then T's), zeroed by the
+// kernel
 int tpeps_frozen_epilogue_vjp_f64(const double* rawC, const double* rawT, const int64_t* pC,
                                   const int64_t* pT, const double* gC, const double* gT,
-                                  const int* bC, const int* bT, int* cntC, int* cntT, int nbC,
+                                  const int* bC, const int* bT, int* cnt, unsigned* bar, int nbC,
                                   int nbT, double* xC, double* xT, double* part, int64_t nC,
                                   int64_t nT, int sg_norm, void* stream) {
-  return epilogue_vjp_launch<double>(rawC, rawT, pC, pT, gC, gT, bC, bT, cntC, cntT, nbC, nbT,
-                                     xC, xT, part, nC, nT, sg_norm,
+  return epilogue_vjp_launch<double>(rawC, rawT, pC, pT, gC, gT, bC, bT, cnt, bar, nbC, nbT, xC,
+                                     xT, part, nC, nT, sg_norm,
                                      static_cast<cudaStream_t>(stream));
 }
 
 int tpeps_frozen_epilogue_vjp_f32(const float* rawC, const float* rawT, const int64_t* pC,
                                   const int64_t* pT, const float* gC, const float* gT,
-                                  const int* bC, const int* bT, int* cntC, int* cntT, int nbC,
+                                  const int* bC, const int* bT, int* cnt, unsigned* bar, int nbC,
                                   int nbT, float* xC, float* xT, float* part, int64_t nC,
                                   int64_t nT, int sg_norm, void* stream) {
-  return epilogue_vjp_launch<float>(rawC, rawT, pC, pT, gC, gT, bC, bT, cntC, cntT, nbC, nbT, xC,
+  return epilogue_vjp_launch<float>(rawC, rawT, pC, pT, gC, gT, bC, bT, cnt, bar, nbC, nbT, xC,
                                     xT, part, nC, nT, sg_norm,
                                     static_cast<cudaStream_t>(stream));
 }

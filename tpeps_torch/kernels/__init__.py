@@ -58,9 +58,11 @@ def arrival_counters(device) -> torch.Tensor:
 
 def barrier_counters(device, owner: str, words: int = 2) -> torch.Tensor:
     """The ``words`` 32-bit words of the grid barrier of the cooperative
-    kernel ``owner`` (K4's ``t_epilogue``, K9's ``frozen_commit``, K10's
-    ``generic_epilogue``) on the device: its two counters and whatever else
-    the kernel keeps there (K9: two 64-bit maxima).  Apart from
+    kernel ``owner`` (K4's ``t_epilogue``, K9's ``frozen_commit`` and
+    ``frozen_epilogue_vjp``, K10's ``generic_epilogue`` and
+    ``generic_epilogue_vjp``) on the device: its two counters and whatever
+    else the kernel keeps there (K9: two 64-bit maxima; the VJPs also their
+    tied-block counts).  Apart from
     :func:`arrival_counters` and from the other owners', so that no other
     kernel's arrivals reach them: zero when made, and every launch leaves
     them zero again, so launches of one kernel share them as long as they

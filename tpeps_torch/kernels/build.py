@@ -70,6 +70,7 @@ _SIGNATURES = {
     "tpeps_frozen_epilogue_vjp_f64": (_vp,) * 10 + (_i, _i, _vp, _vp, _vp, _i64, _i64, _i, _vp),
     "tpeps_frozen_epilogue_vjp_f32": (_vp,) * 10 + (_i, _i, _vp, _vp, _vp, _i64, _i64, _i, _vp),
     "tpeps_frozen_epilogue_vjp_partials": (),
+    "tpeps_frozen_epilogue_vjp_bar_words": (),
     "tpeps_adjoint_commit_f64": (_vp, _vp, _i64, _vp, _i64, _vp, _i64, _vp, _vp, _vp, _vp),
     "tpeps_adjoint_commit_f32": (_vp, _vp, _i64, _vp, _i64, _vp, _i64, _vp, _vp, _vp, _vp),
     "tpeps_adjoint_commit_partials": (),
@@ -79,8 +80,10 @@ _SIGNATURES = {
     "tpeps_generic_epilogue_bar_words": (),
     "tpeps_sweep_commit_f64": (_vp, _vp, _i64, _vp, _vp, _vp, _vp, _vp),
     "tpeps_sweep_commit_f32": (_vp, _vp, _i64, _vp, _vp, _vp, _vp, _vp),
-    "tpeps_generic_epilogue_vjp_f64": (_vp, _vp, _vp, _i, _vp, _vp, _vp, _i, _vp, _vp),
-    "tpeps_generic_epilogue_vjp_f32": (_vp, _vp, _vp, _i, _vp, _vp, _vp, _i, _vp, _vp),
+    "tpeps_generic_epilogue_vjp_f64": (_vp, _vp, _vp, _i, _vp, _vp, _vp, _vp, _i, _vp, _vp),
+    "tpeps_generic_epilogue_vjp_f32": (_vp, _vp, _vp, _i, _vp, _vp, _vp, _vp, _i, _vp, _vp),
+    "tpeps_generic_epilogue_vjp_partials": (),
+    "tpeps_generic_epilogue_vjp_bar_words": (),
 }
 
 

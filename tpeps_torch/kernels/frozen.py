@@ -141,7 +141,9 @@ def frozen_epilogue_vjp(rawC, rawT, pC, pT, gC, gT, bC, bT, nbC: int, nbT: int,
     the JAX package's split over the ties (:func:`tie_weights`; ``bC``,
     ``bT`` the elements' block indices (int32) among ``nbC``, ``nbT`` blocks),
     the second term dropped when ``sg_norm`` (the scale detached), then
-    ``xbar = sym(zbar)``.  Real dtypes only.  Returns ``(xC, xT)``."""
+    ``xbar = sym(zbar)``; one cooperative launch.  A NaN in a symmetrized
+    tensor makes its whole cotangent NaN, as ``max`` does.  Real dtypes
+    only.  Returns ``(xC, xT)``."""
     for name, t, ref in (("rawT", rawT, rawT), ("pC", pC, rawC), ("pT", pT, rawT),
                          ("gC", gC, rawC), ("gT", gT, rawT), ("bC", bC, rawC), ("bT", bT, rawT)):
         if t.shape != ref.shape:
@@ -160,12 +162,14 @@ def frozen_epilogue_vjp(rawC, rawT, pC, pT, gC, gT, bC, bT, nbC: int, nbT: int,
     xC, xT = torch.empty_like(rawC), torch.empty_like(rawT)
     part = torch.empty(lib.cdll.tpeps_frozen_epilogue_vjp_partials(), dtype=rawC.dtype,
                        device=rawC.device)
-    cntC = torch.zeros(max(nbC, 1), dtype=torch.int32, device=rawC.device)
-    cntT = torch.zeros(max(nbT, 1), dtype=torch.int32, device=rawC.device)
+    # the tie counts, zeroed by the kernel
+    cnt = torch.empty(max(nbC + nbT, 1), dtype=torch.int32, device=rawC.device)
+    bar = barrier_counters(rawC.device, "frozen_epilogue_vjp",
+                           lib.cdll.tpeps_frozen_epilogue_vjp_bar_words())
     with torch.cuda.device(rawC.device):
         err = getattr(lib.cdll, f"tpeps_frozen_epilogue_vjp_{suffix(rawC)}")(
             rawC.data_ptr(), rawT.data_ptr(), pC.data_ptr(), pT.data_ptr(), gC.data_ptr(),
-            gT.data_ptr(), bC.data_ptr(), bT.data_ptr(), cntC.data_ptr(), cntT.data_ptr(), nbC,
+            gT.data_ptr(), bC.data_ptr(), bT.data_ptr(), cnt.data_ptr(), bar.data_ptr(), nbC,
             nbT, xC.data_ptr(), xT.data_ptr(), part.data_ptr(), rawC.numel(), rawT.numel(),
             int(bool(sg_norm)), stream_of(rawC))
     lib.check(err, "frozen_epilogue_vjp")

@@ -168,7 +168,8 @@ def generic_epilogue_vjp(raw, gW, seg: SegmentTable, sg_norm: bool = False):
     m^2) w sign(x)`` with the scale differentiated (``w`` the JAX package's
     split over tied maxima: 1 over the blocks whose max ties ``m``, then over
     the tied elements of each such block); ``g`` read from the segment's env
-    slot.  Real dtypes only."""
+    slot.  One cooperative launch for every 64 segments; a NaN in a segment
+    makes that segment's cotangent NaN, as ``max`` does.  Real dtypes only."""
     _check("generic_epilogue_vjp", raw, seg, gW)
     if raw.is_complex() or gW.is_complex():
         raise TypeError("generic_epilogue_vjp takes real tensors")
@@ -180,13 +181,17 @@ def generic_epilogue_vjp(raw, gW, seg: SegmentTable, sg_norm: bool = False):
     require_contiguous("generic_epilogue_vjp", raw=raw, gW=gW)
     lib = library()
     out = torch.empty_like(raw)
-    part = torch.empty(2 * lib.cdll.tpeps_generic_epilogue_partials() * max(len(seg.host), 1),
-                       dtype=raw.dtype, device=raw.device)
-    cnt = torch.zeros(max(seg.nblk, 1), dtype=torch.int32, device=raw.device)
+    part = torch.empty(lib.cdll.tpeps_generic_epilogue_vjp_partials(), dtype=raw.dtype,
+                       device=raw.device)
+    # the tie counts, zeroed by the kernel
+    cnt = torch.empty(max(seg.nblk, 1), dtype=torch.int32, device=raw.device)
+    bar = barrier_counters(raw.device, "generic_epilogue_vjp",
+                           lib.cdll.tpeps_generic_epilogue_vjp_bar_words())
     with torch.cuda.device(raw.device):
         err = getattr(lib.cdll, f"tpeps_generic_epilogue_vjp_{suffix(raw)}")(
             raw.data_ptr(), gW.data_ptr(), seg.seg.data_ptr(), len(seg.host), seg.blk.data_ptr(),
-            part.data_ptr(), cnt.data_ptr(), int(bool(sg_norm)), out.data_ptr(), stream_of(raw))
+            part.data_ptr(), cnt.data_ptr(), bar.data_ptr(), int(bool(sg_norm)), out.data_ptr(),
+            stream_of(raw))
     lib.check(err, "generic_epilogue_vjp")
     LAUNCHES["generic_epilogue_vjp"] += 1
     return out
