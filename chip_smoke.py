@@ -6,11 +6,12 @@ with one CUDA card and ``nvcc`` (CUDA_HOME, PATH or the toolkit's default
 prefix).  It needs no network and no JAX.  ``python3 chip_smoke.py --ablate
 [--parent DIR] [--only PARTS]`` runs phases 0 and 1 and then only
 :func:`ablate`, the timing breakdown of K1's fused double layer, K2's
-corner apply, K3's Gram and solves, K4's epilogue, K6's polar factor and
-its VJP, K7's ``ozaki_split`` and ``ozaki_gemm``, K8, ``eigh_small``, K5's
-and K9's commits and K10's epilogue (with a parent checkout: its kernels,
-its cold start, its graphed move, its Ozaki move and its frozen move beside
-these).
+corner apply (its float32 kernel apart: ``corner``), K3's Gram and solves,
+K4's epilogue, K6's polar factor and its VJP, K7's ``ozaki_split`` and
+``ozaki_gemm``, K8, ``eigh_small``, K5's and K9's commits, K9's
+``adjoint_commit`` (``adjoint``) and K10's epilogue (with a parent
+checkout: its kernels, its cold start, its graphed move, its Ozaki move,
+its mixed driver and its frozen move beside these).
 
 Phases (any failed check exits non-zero; there is no CPU fallback):
 
@@ -24,15 +25,20 @@ Phases (any failed check exits non-zero; there is no CPU fallback):
    the physical-index slicing (:func:`fused_checks`: K1 also at both call
    sites' layouts at chi = 155 and 169 and with chi_n != chi, K2 at n and m
    that are no multiples of its tiles and at chi = 155 and 169, two calls
-   bit-identical), K6 (:func:`polar_checks`: the overlaps of moves 1, 4 and
-   31 of the D=7 path and a random well-conditioned one against the twin,
-   graded overlaps against their exact U V^T, singular and ridged singular
-   ones and a run capped short of convergence giving I, k = 169 and 192,
-   the VJP at k = chi and 169); kernel, twin and
-   library times from CUDA events, and each kernel's bound: the bytes its
-   function must move at 3.35 TB/s or its FP64 operations at 67 TFLOP/s on
-   the tensor cores (34 TFLOP/s off them, elementwise work), counting only
-   what a symmetric result needs.  K3's ``gram_ridge`` and ``gram`` also at
+   bit-identical; K2's float32 kernel also replayed in a CUDA graph and
+   timed in graphs beside ``torch.matmul`` in float32 at each shape, and on
+   operands that stress its TF32 hi/lo split (:func:`k2_split_checks`:
+   exponents 2^-30 .. 2^30 in every row, zeros, subnormals, NaN, +-inf;
+   1e-5 relative, also by row, NaN and inf where the twin has them)), K6
+   (:func:`polar_checks`: the overlaps of moves 1, 4 and 31 of the D=7
+   path and a random well-conditioned one against the twin, graded
+   overlaps against their exact U V^T, singular and ridged singular ones
+   and a run capped short of convergence giving I, k = 169 and 192, the
+   VJP at k = chi and 169); kernel, twin and library times from CUDA
+   events, and each kernel's bound: the bytes its function must move at
+   3.35 TB/s or its FP64 operations at 67 TFLOP/s on the tensor cores (34
+   TFLOP/s off them, elementwise work), counting only what a symmetric
+   result needs.  K3's ``gram_ridge`` and ``gram`` also at
    k = chi and chi + 8 in both dtypes, ``gram_ridge`` on an orthonormal
    basis and on M2 P (not orthonormal) with the path's ridge and a large
    one: against the twins, two calls bit-identical, timed against
@@ -84,9 +90,10 @@ Phases (any failed check exits non-zero; there is no CPU fallback):
    refuses chi=170, past the move's kernels on the card; (e)
    ``run_ctmrg_mixed`` with the JAX package's ``bench_case`` arguments
    (max_iter 48, conv_tol 1e-8, moves_per_sync 4, physical-index slicing
-   for the float64 moves only): per-phase moves, ms/move and distance, the
-   energy, peak memory and the launches; ``ozaki_split``, ``ozaki_gemm``
-   and ``ctm_commit`` must launch; then the float64 ``run_ctmrg``
+   for the float64 moves only): per-phase moves, ms/move, distance and K2
+   launches (K2 must launch in both float32 phases), the energy, peak
+   memory and the launches; ``ozaki_split``, ``ozaki_gemm`` and
+   ``ctm_commit`` must launch; then the float64 ``run_ctmrg``
    (``dot_impl="xla"``) for as many moves from the same start: energies
    within 1e-8, corner spectra within 1e-5.
 
@@ -123,7 +130,9 @@ Phases (any failed check exits non-zero; there is no CPU fallback):
    ``block_permute`` on the largest operand's inverse table, bit-exact),
    ``frozen_epilogue_vjp`` (<= 1e-12 relative) and ``adjoint_commit`` (one
    step <= 1e-12 relative; the loop on crafted |u|^2 sequences, counters
-   bit-exact) against their twins, with
+   bit-exact; :func:`adjoint_checks` in f64 and f32: buffers off their
+   16-byte boundaries, sizes 1 and odd, an ended loop untouched, two calls
+   bit-identical, timed in CUDA graphs) against their twins, with
    kernel, twin and bound times; (b) one closure of
    ``optimize_c4v_abelian`` (the context: AB_CLOSURE_MOVES dynamic moves and
    plans; the frozen forward; the adjoint's iterations, ms each, converged or
@@ -156,8 +165,10 @@ Phases (any failed check exits non-zero; there is no CPU fallback):
    context of (e)'s epoch, (a) K10 against its twins at one frozen move's
    shapes (``generic_epilogue`` bit-exact, two calls bit-identical, also
    timed in CUDA graphs; ``sweep_commit``'s state bit-exact and dist2 <=
-   1e-12 relative, ``generic_epilogue_vjp`` both ways <= 1e-12 relative)
-   with kernel, twin and bound times, and (c) the frozen
+   1e-12 relative, ``generic_epilogue_vjp`` both ways <= 1e-12 relative;
+   K9's ``adjoint_commit`` at the generic adjoint's sizes by
+   :func:`adjoint_checks`) with kernel, twin and bound times, and (c) the
+   frozen
    sweep (ms per sweep split into halves, decompositions, absorption,
    epilogue/commit; busy share; no plan built) and the same sweeps
    dynamically (energies within AB_E_FROZEN_TOL); (f) D=3: chi=18 dynamic
@@ -331,8 +342,10 @@ GEN_TRAIN = ("block_permute", "block_gemm", "block_permute_grad", "block_gemm_gr
              "generic_epilogue", "sweep_commit", "generic_epilogue_vjp", "adjoint_commit")
 GEN_K10 = ("generic_epilogue", "sweep_commit", "generic_epilogue_vjp")
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, FP64 on the tensor cores
-# (DMMA) and on the CUDA cores
+# (DMMA) and on the CUDA cores, int8 on the tensor cores
 HBM_BPS, FP64_TC, FP64_CC, INT8_TC = 3.35e12, 67e12, 34e12, 1979e12
+# TF32 on the tensor cores, FP32 on the CUDA cores
+TF32_TC, FP32_CC = 495e12, 67e12
 
 
 T_START = time.perf_counter()  # the script's start, for the checks' time stamps
@@ -749,10 +762,105 @@ def fused_checks(a, tol, tag, gen, dev) -> dict:
               f"K2 corner_apply {tag}, n={n}, m={m}, {pitch}: rel err {e:.2e} <= {tol:.0e}, "
               "two calls bit-identical")
         out_ms[f"corner_apply n={n} m={m} {pitch}"] = cuda_ms(lambda: corner.corner_apply(M2, P))
+        if dtype == torch.float32:
+            # in a CUDA graph (the float32 phases' MoveGraph captures it), and
+            # timed in graphs beside torch.matmul in float32 (TF32 off): kernel,
+            # matmul, matmul, kernel
+            Yg, = in_graph(lambda: corner.corner_apply(M2, P))
+            check(torch.equal(Yg, Y1), f"K2 corner_apply {tag}, n={n}, m={m}, {pitch}: a CUDA "
+                                       "graph's replay bit-identical to the eager call")
+            kern, mm = (lambda: corner.corner_apply(M2, P)), (lambda: torch.matmul(M2, P))
+            ms, lib_ms = graph_ms(kern), graph_ms(mm)
+            lib_ms, ms = min(lib_ms, graph_ms(mm)), min(ms, graph_ms(kern))
+            K2_F32[f"n={n} m={m} {pitch}"] = {"ms": ms, "matmul_ms": lib_ms, "rel_err": e}
+            print(f"  K2 corner_apply {tag} {n} x {n} by {n} x {m}, {pitch} (CUDA graphs): kernel "
+                  f"{ms:.4f} ms, torch.matmul {lib_ms:.4f} ms ({ms / lib_ms:.2f}x)")
         del M2, P, Y1, Y2
     print(f"  K1/K2 {tag} kernel times (CUDA events): "
           + ", ".join(f"{k} {v:.3f} ms" for k, v in out_ms.items()))
     return out_ms
+
+
+K2_F32: dict = {}  # K2's float32 times in CUDA graphs by shape (fused_checks)
+
+
+def split_stress(n, m, gen, dev):
+    """float32 operands for K2's TF32 hi/lo split: M2 (pitch n + 1) with
+    entries of both signs whose exponents span 2^-30 .. 2^30 in every row,
+    exact zeros, a zero row, a row of subnormals and subnormals sprinkled
+    in, a NaN (row n / 10), +inf and -inf (row n / 5); P with exponents
+    over 2^-10 .. 2^10, exact zeros in the row that meets the +inf and an
+    inf (column m / 3)."""
+    f = lambda *shape: torch.rand(*shape, generator=gen, device=dev, dtype=torch.float32)
+    e = lambda lo, hi, shape: torch.exp2(torch.randint(lo, hi + 1, shape, generator=gen,
+                                                       device=dev).float())
+    buf = torch.empty((n, n + 1), dtype=torch.float32, device=dev)
+    M2 = buf[:, :n]
+    M2.copy_((0.5 + 0.5 * f(n, n)) * e(-30, 30, (n, n)))
+    M2.copy_(torch.where(f(n, n) < 0.5, -M2, M2))
+    M2.copy_(torch.where(f(n, n) < 0.05, torch.zeros_like(M2), M2))
+    sub = torch.randint(1, 1 << 20, (n, n), generator=gen, device=dev).float() * 2.0 ** -149
+    M2.copy_(torch.where(f(n, n) < 0.01, sub, M2))
+    M2[3] = 0.0
+    M2[5] = sub[5]
+    M2[n // 10, n // 3] = math.nan
+    M2[n // 5, n // 2] = math.inf
+    M2[n // 5, (3 * n) // 4] = -math.inf
+    P = (0.5 + 0.5 * f(n, m)) * e(-10, 10, (n, m))
+    P = torch.where(f(n, m) < 0.5, -P, P)
+    P[n // 2, ::3] = 0.0
+    P[n - 7, m // 3] = math.inf
+    return M2, P.contiguous()
+
+
+def k2_split_checks(gen, dev) -> dict:
+    """K2's float32 kernel on :func:`split_stress`'s operands at n = 7203
+    (split-K) and 1000, m = 147 and 33: NaN and inf where the twin has them
+    (the same signs), the finite entries within 1e-5 of the twin relative to
+    its largest, and each row whose largest |Y| is a normal float within
+    1e-5 relative to that; two calls bit-identical.  Then at m = 193-400
+    (two or three column tiles) on random operands: within 1e-5 of the
+    twin, two calls bit-identical."""
+    from tpeps_torch.kernels import corner
+
+    out = {}
+    for n, m in ((CHI * D * D, CHI), (1000, 33)):
+        M2, P = split_stress(n, m, gen, dev)
+        Y1, Y2, Yt = corner.corner_apply(M2, P), corner.corner_apply(M2, P), \
+            corner.corner_apply_twin(M2, P)
+        fin = torch.isfinite(Yt)
+        same_special = (torch.equal(torch.isnan(Y1), torch.isnan(Yt))
+                        and torch.equal(torch.isinf(Y1), torch.isinf(Yt))
+                        and torch.equal(Y1[torch.isinf(Yt)], Yt[torch.isinf(Yt)]))
+        d = torch.where(fin, (Y1 - Yt).abs(), torch.zeros_like(Yt)).double()
+        ref = torch.where(fin, Yt.abs(), torch.zeros_like(Yt)).double()
+        e_all = float(d.max() / ref.max())
+        rmax = ref.max(dim=1).values
+        rows = rmax >= 2.0 ** -100
+        e_row = float((d.max(dim=1).values[rows] / rmax[rows]).max())
+        n_nan, n_inf = int(torch.isnan(Yt).sum()), int(torch.isinf(Yt).sum())
+        check(same_special and e_all <= TOL[torch.float32] and e_row <= TOL[torch.float32]
+              and same_float(Y1, Y2),
+              f"K2 corner_apply float32 on split-stress operands (exponents 2^-30..2^30, zeros, "
+              f"subnormals, NaN, +-inf), n={n}, m={m}: NaN ({n_nan}) and inf ({n_inf}) where the "
+              f"twin has them; finite rel err {e_all:.2e}, by normal row {e_row:.2e} <= 1e-5; "
+              "two calls bit-identical")
+        out[f"n={n} m={m}"] = {"rel_err": e_all, "row_rel_err": e_row, "nan": n_nan, "inf": n_inf}
+        del M2, P, Y1, Y2, Yt, d, ref
+    # m wider than one 192-column tile: several column tiles (and, at n =
+    # 7203, split-K across them), random operands, even and odd pitches
+    for n, m, pad in ((1000, 200, False), (333, 193, False), (1000, 400, True),
+                      (CHI * D * D, 250, True)):
+        M2 = torch.randn(n, n + (n % 2 if pad else 0), generator=gen, device=dev)[:, :n]
+        P = torch.randn(n, m, generator=gen, device=dev)
+        Y1, Y2 = corner.corner_apply(M2, P), corner.corner_apply(M2, P)
+        e = rel_err(Y1, corner.corner_apply_twin(M2, P))
+        check(e <= TOL[torch.float32] and same_float(Y1, Y2),
+              f"K2 corner_apply float32, n={n}, m={m} ({-(-m // 192)} column tiles), pitch "
+              f"{M2.stride(0)}: rel err {e:.2e} <= 1e-5, two calls bit-identical")
+        out[f"n={n} m={m} pitch {M2.stride(0)}"] = {"rel_err": e}
+        del M2, P, Y1, Y2
+    return out
 
 
 def exact_polar(O):
@@ -1046,6 +1154,20 @@ def phase2(dev) -> dict:
     for name, shapes in gram_shapes.items():
         rec[name]["shapes"] = shapes
     rec["t_epilogue"].update(epilogue_checks(torch.Generator(device=dev).manual_seed(4), dev))
+    # K2's float32 kernel: its graph times by shape (fused_checks), its bound
+    # at the move's shape (3xTF32: three products at the TF32 tensor-core
+    # peak; on the CUDA cores one at the FP32 peak) and the split's stress
+    n = CHI * D * D
+    nb = 4 * (n * n + 2 * n * CHI)
+    b_ms, b_by = bound(nb, 3 * 2 * n * n * CHI, TF32_TC)
+    rec["corner_apply"]["f32"] = {
+        "route": "3xTF32, wgmma m64n32k8 (split_p_kernel + corner_tf32_kernel)", "shapes_graph_ms": dict(K2_F32),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "fp32_cuda_core_bound_ms": bound(nb, 2 * n * n * CHI, FP32_CC)[0],
+        "split_stress": k2_split_checks(torch.Generator(device=dev).manual_seed(15), dev)}
+    print(f"  K2 float32 bound at {n} x {n} by {n} x {CHI}: {b_ms:.4f} ms ({b_by}; three TF32 "
+          f"products at 495 TFLOP/s), {rec['corner_apply']['f32']['fp32_cuda_core_bound_ms']:.4f}"
+          " ms for one FP32 product on the CUDA cores at 67 TFLOP/s")
     return rec
 
 
@@ -1751,6 +1873,28 @@ def graph_replay_ms(a, env0, n_chunks: int) -> float:
     return 1000.0 * (time.perf_counter() - t0) / (n_chunks * MOVES_PER_SYNC)
 
 
+MIXED_PHASES: list = []  # phase 7(e)'s run_ctmrg_mixed phases, for the JSON record
+
+
+@contextlib.contextmanager
+def count_phase_launches(mf, name):
+    """Within the block, every ``mf.run_ctmrg`` call (one a phase of
+    ``run_ctmrg_mixed``) appends the launches of kernel ``name`` it made to
+    the yielded list."""
+    from tpeps_torch.kernels import LAUNCHES
+
+    out, orig = [], mf.run_ctmrg
+
+    def counted(*args, **kw):
+        before = LAUNCHES[name]
+        res = orig(*args, **kw)
+        out.append(LAUNCHES[name] - before)
+        return res
+
+    with mock.patch.object(mf, "run_ctmrg", counted):
+        yield out
+
+
 def phase7(dev) -> tuple:
     print(f"== phase 7: the large-D slice, J1-J2 C4v D={D} chi={CHI}", flush=True)
     from tpeps_torch.ctm.c4v import move_factored as mf
@@ -1834,17 +1978,22 @@ def phase7(dev) -> tuple:
     reset_launch_counts()
     k6_steps_reset(dev)
     t0 = time.perf_counter()
-    env, n, dist = mf.run_ctmrg_mixed(a, env0, max_iter=MAX_ITER, conv_tol=CONV_TOL,
-                                      slice_phys=True, moves_per_sync=MOVES_PER_SYNC, stats=stats)
+    with count_phase_launches(mf, "corner_apply") as k2:
+        env, n, dist = mf.run_ctmrg_mixed(a, env0, max_iter=MAX_ITER, conv_tol=CONV_TOL,
+                                          slice_phys=True, moves_per_sync=MOVES_PER_SYNC,
+                                          stats=stats)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = launch_counts()
     k6_steps_read(dev, "large-D slice")
     peak = torch.cuda.max_memory_allocated()
-    for st in stats:
+    for st, n_k2 in zip(stats, k2):
         print(f"  {st['phase']}: {st['moves']} moves, dist {st['dist']:.3e}, "
               f"{1000 * st['seconds'] / max(st['moves'], 1):.2f} ms/move (host wall, capture "
-              "included)")
+              f"included), K2 corner_apply launched {n_k2} times")
+    check(all(n_k2 > 0 for st, n_k2 in zip(stats, k2) if st["phase"].startswith("f32")),
+          f"K2 corner_apply launched in both float32 phases: {k2[:2]}")
+    MIXED_PHASES.extend({**st, "corner_apply_launches": n_k2} for st, n_k2 in zip(stats, k2))
     energy = float(model.energy_1x1_lowmem(a, env))
     print(f"  run_ctmrg_mixed: {n} moves in {wall:.2f} s, final dist {dist:.3e}, energy "
           f"{energy:.12f}, env dtype {env.C.dtype}, peak memory {peak / 2**30:.2f} GiB")
@@ -2677,6 +2826,78 @@ def adjoint_run(commit, lam_c, lam_t, ratio, max_iter, a, uC, uT):
     return st
 
 
+def adjoint_checks(label, na, nC, nT, gen, dev) -> dict:
+    """K9's ``adjoint_commit`` against its twin at an adjoint's sizes (the
+    site ``na``, C ``nC``, T ``nT`` entries) in float64 and float32: fresh
+    buffers; u as one buffer cut at nC (the generic adjoint's views: uT off
+    its 16-byte boundary when nC is odd); every buffer one element off its
+    boundary and da_i two (their offsets apart), and every buffer three off;
+    sizes 1 and odd; da bit-exact, delta within 1e-12 (f64) or 1e-5 (f32)
+    relative, ctl bit-exact.  A loop that has ended leaves the state
+    untouched, two calls from one state give the same bits.  Timed in CUDA
+    graphs (float64, the state never done: u repeats, so delta never
+    grows).  Returns the time and the sizes."""
+    from tpeps_torch.kernels import frozen as kfrozen
+
+    def state(da, gC, gT):  # the first carry, with da (its values, its place) as given
+        st = kfrozen.adjoint_state(da, gC, gT, 100, 1e-8)
+        return kfrozen.AdjointState(da, st.scal, st.ctl)
+
+    def off(n, k, dtype):  # n entries k elements past a 16-byte boundary
+        return torch.randn(n + k, generator=gen, device=dev, dtype=dtype)[k:]
+
+    def agree(sk, st):
+        e = rel_err(sk.scal[:1], st.scal[:1])
+        return torch.equal(sk.da, st.da) and torch.equal(sk.ctl, st.ctl), e
+
+    for dtype in (torch.float64, torch.float32):
+        tag, tol = str(dtype).replace("torch.", ""), TOL[dtype]
+        rnd = lambda n: torch.randn(n, generator=gen, device=dev, dtype=dtype)
+        cases = []
+        for sizes in ((na, nC, nT), (1, 1, 1), (7, 5, 13)):
+            a, c, t = sizes
+            gC, gT = rnd(c), rnd(t)
+            v = rnd(c + t)
+            cases += [(f"{sizes}, fresh buffers", rnd(a), rnd(a), rnd(c), rnd(t), gC, gT),
+                      (f"{sizes}, u one buffer cut at nC", rnd(a), rnd(a), v[:c], v[c:], gC, gT),
+                      (f"{sizes}, every buffer 1 element off, da_i 2", off(a, 1, dtype),
+                       off(a, 2, dtype), off(c, 1, dtype), off(t, 1, dtype), gC, gT),
+                      (f"{sizes}, every buffer 3 elements off", off(a, 3, dtype),
+                       off(a, 3, dtype), off(c, 3, dtype), off(t, 3, dtype), gC, gT)]
+        for name, da0, dai, uC, uT, gC, gT in cases:
+            st = state(da0.clone(), gC, gT)
+            sk = state(da0, gC, gT)
+            kfrozen.adjoint_commit(sk, dai, uC, uT)
+            kfrozen.adjoint_commit_twin(st, dai, uC, uT)
+            ok, e = agree(sk, st)
+            check(ok and e <= tol, f"adjoint_commit {tag} {label}, {name}: da bit-exact, delta "
+                                   f"rel err {e:.1e} <= {tol:.0e}, ctl {sk.ctl.tolist()} bit-exact")
+        # an ended loop: untouched; two calls from one state: the same bits
+        da_i, uC, uT = rnd(na), rnd(nC), rnd(nT)
+        ended = state(rnd(na), uC, uT)
+        ended.ctl[1] = 1
+        before = [x.clone() for x in ended]
+        kfrozen.adjoint_commit(ended, da_i, uC, uT)
+        check(all(torch.equal(x, y) for x, y in zip(ended, before)),
+              f"adjoint_commit {tag} {label}: a loop that has ended leaves da, scal and ctl "
+              "untouched")
+        s1 = state(rnd(na), uC, uT)
+        s2 = kfrozen.AdjointState(s1.da.clone(), s1.scal.clone(), s1.ctl.clone())
+        kfrozen.adjoint_commit(s1, da_i, uC, uT)
+        kfrozen.adjoint_commit(s2, da_i, uC, uT)
+        check(all(torch.equal(x, y) for x, y in zip(s1, s2)),
+              f"adjoint_commit {tag} {label}: two calls from one state bit-identical")
+    rnd = lambda n: torch.randn(n, generator=gen, device=dev, dtype=torch.float64)
+    da_i, uC, uT = rnd(na), rnd(nC), rnd(nT)
+    sg = kfrozen.adjoint_state(rnd(na), uC, uT, 10**9, 0.0)
+    ms = graph_ms(lambda: kfrozen.adjoint_commit(sg, da_i, uC, uT))
+    check(int(sg.ctl[1]) == 0, f"adjoint_commit's timing loop never ended ({int(sg.ctl[0])} "
+                               "steps)")
+    print(f"  adjoint_commit {label} (site {na}, C {nC}, T {nT} entries) in CUDA graphs: "
+          f"{ms * 1000:.2f} us")
+    return {"graph_ms": ms, "entries": [na, nC, nT]}
+
+
 def adjoint_diagnosis(a, C0, T0, keep, cfg, dev) -> None:
     """Why the implicit adjoint diverges or converges at a closure's frozen
     fixed point (``run_frozen`` from the closed ``(C0, T0)`` as the loss
@@ -2869,6 +3090,8 @@ def phase9(dev) -> tuple:
               8 * (3 * na + nct), na + 2 * nct, FP64_CC)
     check(torch.equal(sk2.ctl, st2.ctl), f"adjoint_commit after the timing calls: ctl "
                                          f"{sk2.ctl.tolist()} bit-exact")
+    rec["adjoint_commit"].update(adjoint_checks("C4v D=8", na, C.data.numel(), T.data.numel(),
+                                                torch.Generator(device=dev).manual_seed(16), dev))
     del nC, nT, gC, gT, C, T, env
 
     # (b) one closure of optimize_c4v_abelian: context, gradient, energy
@@ -3407,6 +3630,11 @@ def phase10(dev) -> tuple:
           f"sweep_commit's timing loop never ended ({int(sk2.ctl[0])} commits)")
     rec["sweep_commit"]["max_abs_err"] = max(rec["sweep_commit"]["max_abs_err"],
                                              float((sk.dist2 - stw.dist2).abs()))
+    # K9's adjoint_commit at the generic adjoint's sizes (the two sites, the
+    # env cut at its C entries: uT a view off its 16-byte boundary when odd)
+    rec["adjoint_commit_generic"] = adjoint_checks(
+        "generic 2-site D=8", int(gfz._Sites(st_c).flat().numel()), lay.numel_C,
+        lay.numel - lay.numel_C, torch.Generator(device=dev).manual_seed(17), dev)
     gen = torch.Generator(device=dev).manual_seed(10)
     g = torch.rand(X.numel(), generator=gen, device=dev, dtype=torch.float64) - 0.5
     err_vjp = generic_vjp_checks(raw, g, seg)
@@ -3523,6 +3751,13 @@ VJP_COPIES = {0: "whole", 32: "launch and set-up only", 64: "no grid barriers",
 FROZEN_VJP_COPIES = {**VJP_COPIES, 512: "no partner gathers"}
 # K5's ctm_commit and a copy of it in 16-byte vectors, four loads in flight a thread
 CTM_COPIES = {0: "whole", "-DTPEPS_CTM_VEC=1": "16-byte copy"}
+# K2's float32 kernel and its timing copies (csrc/corner_apply.cu)
+K2F32_COPIES = {0: "whole", 1: "no copies", 2: "no wgmmas or splits", 4: "no split-K sum",
+                3: "no copies, no wgmmas", 8: "one TF32 product (A_hi B_hi)",
+                16: "no slab sums (one running sum)", 32: "no split of P",
+                64: "no copies of P's planes", 128: "no copies of M2"}
+# K9's adjoint_commit (csrc/frozen_commit.cu), timed whole beside the parent's
+ADJ_COPIES = {0: "whole"}
 # what each -DTPEPS_ABLATE bit leaves out (csrc/cholqr.cu, csrc/ozaki.cu,
 # csrc/eigh_small.cu, csrc/double_layer.cu, csrc/corner_apply.cu,
 # csrc/polar.cu); the copies of eigh_small.cu run every sweep (64) and those
@@ -3572,13 +3807,18 @@ ABLATE_GROUPS = {"gram": ("cholqr.cu",), "ozaki": ("ozaki.cu",), "solves": ("cho
                  "polar": ("polar.cu",), "k8": ("block_sparse.cu",), "split": ("ozaki.cu",),
                  "epilogue": ("t_epilogue.cu",),
                  "commit": ("ctm_commit.cu", "frozen_commit.cu", "frozen_generic.cu"),
-                 "vjp": ("frozen_commit.cu", "frozen_generic.cu")}
+                 "vjp": ("frozen_commit.cu", "frozen_generic.cu"), "corner": ("corner_apply.cu",),
+                 "adjoint": ("frozen_commit.cu",)}
+# the copies a part builds where it needs fewer than ABLATIONS lists
+ABLATE_KEYS = {"corner": {"corner_apply.cu": K2F32_COPIES},
+               "adjoint": {"frozen_commit.cu": ADJ_COPIES}}
 # the parent's sources each part times, and the sources linked with each
 # (the parent's polar.cu calls the Gram of its cholqr.cu)
 ABLATE_PARENT = {"solves": ("cholqr.cu",), "fused": ("layer_contract.cu", "corner_apply.cu"),
                  "polar": ("polar.cu",), "k8": ("block_sparse.cu",), "split": ("ozaki.cu",),
                  "epilogue": ("t_epilogue.cu",), "commit": ("frozen_commit.cu", "frozen_generic.cu"),
-                 "vjp": ("frozen_commit.cu", "frozen_generic.cu")}
+                 "vjp": ("frozen_commit.cu", "frozen_generic.cu"), "corner": ("corner_apply.cu",),
+                 "adjoint": ("frozen_commit.cu",)}
 PARENT_LINKED = {"polar.cu": ("cholqr.cu",)}
 
 
@@ -3645,9 +3885,16 @@ def ablate(parent=None, only=None) -> dict:
     ``adjoint_commit`` and ``sweep_commit`` (:func:`ablate_vjp`, ``vjp``),
     with ``parent`` the parent's beside them and :func:`k8_move_compare`'s
     adjoint iteration.
+    K2's float32 kernel (:func:`ablate_corner`, ``corner``) at every phase-2
+    shape beside ``torch.matmul`` in float32, with its timing copies at the
+    move's shape, and with ``parent`` the parent's K2 in both dtypes and
+    ``run_ctmrg_mixed``'s phases and the graphed float32 move in each
+    checkout (:func:`mixed_compare`); K9's ``adjoint_commit``
+    (:func:`ablate_adjoint`, ``adjoint``) at the C4v and a 2-site-sized
+    adjoint's sizes with its timing copies and two other designs.
     ``only`` names the parts to run (:data:`ABLATE_GROUPS`).  Run by
-    ``chip_smoke.py --ablate [--parent DIR]
-    [--only gram,ozaki,solves,eigh,fused,polar,k8,split,epilogue,commit,vjp]``."""
+    ``chip_smoke.py --ablate [--parent DIR] [--only
+    gram,ozaki,solves,eigh,fused,polar,k8,split,epilogue,commit,vjp,corner,adjoint]``."""
     from tpeps_torch.kernels import build as kb
 
     groups = tuple(ABLATE_GROUPS) if only is None else tuple(only)
@@ -3656,11 +3903,13 @@ def ablate(parent=None, only=None) -> dict:
     out_dir = kb.BUILD_DIR / "ablate"
     out_dir.mkdir(parents=True, exist_ok=True)
     nvcc, procs = kb.find_nvcc(), {}
-    srcs = {src for grp in groups for src in ABLATE_GROUPS[grp]}
+    variants = {}
+    for grp in groups:
+        for src in ABLATE_GROUPS[grp]:
+            variants.setdefault(src, {}).update(ABLATE_KEYS.get(grp, {}).get(src, ABLATIONS[src]))
     builds = {(src, key): (key if isinstance(key, str) else f"-DTPEPS_ABLATE={key}", label,
                            (kb.CSRC_DIR / src,))
-              for src, variants in ABLATIONS.items() if src in srcs
-              for key, label in variants.items()}
+              for src, copies in variants.items() for key, label in copies.items()}
     if parent is not None:
         for grp in groups:
             for src in ABLATE_PARENT.get(grp, ()):
@@ -3717,6 +3966,12 @@ def ablate(parent=None, only=None) -> dict:
         rec.update(ablate_commit(libs, in_turns, stream, dev, parent))
     if "vjp" in groups:
         rec.update(ablate_vjp(libs, in_turns, stream, dev, parent))
+    if "adjoint" in groups:
+        rec.update(ablate_adjoint(libs, in_turns, stream, dev, parent))
+    if "corner" in groups:
+        rec.update(ablate_corner(libs, in_turns, stream, dev, parent))
+        if parent is not None:
+            rec["mixed_driver"] = mixed_compare(parent)
     if "k8" in groups:
         rec.update(ablate_k8(libs, in_turns, stream, dev, parent is not None))
     if parent is not None and {"k8", "commit", "vjp"} & set(groups):
@@ -4683,44 +4938,21 @@ def ablate_fused(libs, in_turns, stream, dev, with_parent) -> dict:
         P = torch.randn(n, CHI, generator=gen, device=dev, dtype=dtype)
         Y = torch.empty(n, CHI, dtype=dtype, device=dev)
         calls = {}
-        if with_parent and hasattr(libs["corner_apply.cu", "parent"],
-                                   "tpeps_corner_apply_scratch_f64"):
-            libs_k2 = {"parent": libs["corner_apply.cu", "parent"]}  # a parent after PR 9
-        elif with_parent:
-            libs_k2 = {}
+        if with_parent and not hasattr(libs["corner_apply.cu", "parent"],
+                                       "tpeps_corner_apply_scratch_f64"):
             fp = getattr(libs["corner_apply.cu", "parent"], f"tpeps_corner_apply_{sfx}")
             fp.argtypes = (ctypes.c_void_p,) * 3 + (ctypes.c_int, ctypes.c_int, ctypes.c_void_p)
 
-            def parent_k2(fp=fp):
+            def parent_k2(fp=fp):  # a parent whose K2 takes a contiguous M2, no scratch
                 err = fp(M2c.data_ptr(), P.data_ptr(), Y.data_ptr(), n, CHI, stream())
                 if err:
                     fail(f"parent corner_apply launch: CUDA error {err}")
             calls["parent"] = parent_k2
-        else:
-            libs_k2 = {}
+        elif with_parent:
+            calls["parent"] = k2_caller(libs["corner_apply.cu", "parent"], M2, P, Y, stream)
         keys = ABLATIONS["corner_apply.cu"] if dtype == torch.float64 else {0: "whole"}
-        for key, klabel in list(libs_k2.items()) + list(keys.items()):
-            lib = libs_k2[key] if key in libs_k2 else libs["corner_apply.cu", key]
-            klabel = key if key in libs_k2 else klabel
-            if dtype == torch.float64:
-                scratch = lib.tpeps_corner_apply_scratch_f64(n, CHI)
-                check(scratch >= 0, f"corner_apply scratch query: {scratch}")
-                part = torch.empty(max(scratch, 1), dtype=dtype, device=dev)
-                counters = torch.zeros(ARRIVAL_COUNTERS, dtype=torch.int32, device=dev)
-
-                def call(lib=lib, part=part, counters=counters):
-                    err = lib.tpeps_corner_apply_f64(
-                        M2.data_ptr(), M2.stride(0), P.data_ptr(), Y.data_ptr(), part.data_ptr(),
-                        part.numel(), counters.data_ptr(), counters.numel(), n, CHI, stream())
-                    if err:
-                        fail(f"corner_apply launch: CUDA error {err}")
-            else:
-                def call(lib=lib):
-                    err = lib.tpeps_corner_apply_f32(M2.data_ptr(), M2.stride(0), P.data_ptr(),
-                                                     Y.data_ptr(), n, CHI, stream())
-                    if err:
-                        fail(f"corner_apply launch: CUDA error {err}")
-            calls[klabel] = call
+        for key, klabel in keys.items():
+            calls[klabel] = k2_caller(libs["corner_apply.cu", key], M2, P, Y, stream)
         calls["torch.matmul"] = lambda P=P: torch.matmul(M2, P)
         if with_parent:
             calls["parent, again"] = calls["parent"]
@@ -4734,10 +4966,238 @@ def ablate_fused(libs, in_turns, stream, dev, with_parent) -> dict:
     return rec
 
 
-# the first 48 eager D=7 chi=147 f64 moves from the cold start (the second of
-# two such runs: the first builds and warms up), then one eager move's peak
-# memory and time, and the graphed move's (MoveGraph, 4 moves a replay): run
-# in a checkout's root by move_compare
+# phase 2's K2 shapes: (n, m, M2's rows padded to an even pitch)
+K2_SHAPES = ((CHI * D * D, CHI, True), (CHI * D * D, CHI, False), (CHI * D * D, CHI + 8, True),
+             ((CHI + 8) * D * D, CHI + 8, True), (EIGH_BIG * D * D, EIGH_BIG, True),
+             (EIGH_BIG * D * D, 177, True), (1000, 33, False))
+# the parent's first K2 float32 C entry (no scratch, no counters)
+PARENT_K2_F32_ARGS = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
+                      ctypes.c_int, ctypes.c_int, ctypes.c_void_p)
+
+
+def k2_caller(lib, M2, P, Y, stream):
+    """A call of ``lib``'s K2 C entry for ``Y = M2 @ P`` in P's dtype (a
+    parent whose float32 entry takes no scratch: its own arguments)."""
+    from tpeps_torch.kernels import ARRIVAL_COUNTERS
+
+    sfx = "f64" if P.dtype == torch.float64 else "f32"
+    n, m = P.shape
+    fn = getattr(lib, f"tpeps_corner_apply_{sfx}")
+    if not hasattr(lib, f"tpeps_corner_apply_scratch_{sfx}"):
+        fn.argtypes = PARENT_K2_F32_ARGS
+
+        def call():
+            err = fn(M2.data_ptr(), M2.stride(0), P.data_ptr(), Y.data_ptr(), n, m, stream())
+            if err:
+                fail(f"corner_apply {sfx} launch: CUDA error {err}")
+        return call
+    scratch = getattr(lib, f"tpeps_corner_apply_scratch_{sfx}")(n, m)
+    if scratch < 0:
+        fail(f"corner_apply {sfx} scratch query: CUDA error {-scratch}")
+    part = torch.empty(max(scratch, 1), dtype=P.dtype, device=P.device)
+    counters = torch.zeros(ARRIVAL_COUNTERS, dtype=torch.int32, device=P.device)
+
+    def call():
+        err = fn(M2.data_ptr(), M2.stride(0), P.data_ptr(), Y.data_ptr(), part.data_ptr(),
+                 part.numel(), counters.data_ptr(), counters.numel(), n, m, stream())
+        if err:
+            fail(f"corner_apply {sfx} launch: CUDA error {err}")
+    return call
+
+
+def ablate_corner(libs, in_turns, stream, dev, parent) -> dict:
+    """:func:`ablate`'s part for K2's float32 kernel: at every phase-2 shape
+    (:data:`K2_SHAPES`) this checkout's kernel, the parent's (first and last,
+    ``parent`` given) and ``torch.matmul`` in float32 (TF32 off) in CUDA
+    graphs; at the move's shape (7203 x 7203 by 147, M2's pitch padded) also
+    every timing copy (:data:`K2F32_COPIES`), each copy's relative error to
+    the twin printed (the one-product and one-sum copies compute; the
+    others do not).  The first call of this checkout's kernel and of the
+    parent's is held to the twin (1e-5 relative).  With ``parent`` also the
+    float64 kernel against the parent's at the move's shape: the same bits,
+    timed beside it."""
+    gen = torch.Generator(device=dev).manual_seed(18)
+    rec = {}
+    for n, m, pad in K2_SHAPES:
+        M2 = torch.randn(n, n + (n % 2 if pad else 0), generator=gen, device=dev,
+                         dtype=torch.float32)[:, :n]
+        P = torch.randn(n, m, generator=gen, device=dev, dtype=torch.float32)
+        Y = torch.empty(n, m, dtype=torch.float32, device=dev)
+        ref = M2 @ P
+        keys = [("parent", "parent")] if parent is not None else []
+        move_shape = (n, m, pad) == K2_SHAPES[0]
+        keys += list(K2F32_COPIES.items()) if move_shape else [(0, "whole")]
+        calls, errs = {}, {}
+        for key, label in keys:
+            call = k2_caller(libs["corner_apply.cu", key], M2, P, Y, stream)
+            Y.fill_(math.nan)
+            call()
+            errs[label] = rel_err(Y, ref)
+            if key in ("parent", 0):
+                check(errs[label] <= TOL[torch.float32],
+                      f"K2 float32 ({label}) n={n} m={m} pitch {M2.stride(0)}: rel err "
+                      f"{errs[label]:.2e} <= 1e-5")
+            calls[label] = call
+        calls["torch.matmul"] = lambda M2=M2, P=P: torch.matmul(M2, P)
+        if parent is not None:
+            calls["parent, again"] = calls["parent"]
+        label = f"corner_apply f32 {n} x {n} by {n} x {m}, pitch {M2.stride(0)}"
+        ms = in_turns(calls, 5, 2)
+        rec[label] = {"ms": ms, "rel_err": errs}
+        print(f"  {label} (CUDA graphs): " + ", ".join(f"{v} {t:.4f} ms" for v, t in ms.items())
+              + "; rel err " + ", ".join(f"{v} {e:.1e}" for v, e in errs.items()), flush=True)
+        del M2, P, Y, ref, calls
+    if parent is not None:
+        n, m = CHI * D * D, CHI
+        M2 = torch.randn(n, n + 1, generator=gen, device=dev, dtype=torch.float64)[:, :n]
+        P = torch.randn(n, m, generator=gen, device=dev, dtype=torch.float64)
+        Ys = {k: torch.empty(n, m, dtype=torch.float64, device=dev) for k in ("parent", 0)}
+        calls = {("parent" if k == "parent" else "whole"):
+                 k2_caller(libs["corner_apply.cu", k], M2, P, Ys[k], stream) for k in Ys}
+        for call in calls.values():
+            call()
+        check(torch.equal(Ys["parent"], Ys[0]), f"K2 float64 {n} x {n} by {n} x {m}: the same "
+                                                "bits as the parent's kernel")
+        calls["parent, again"] = calls["parent"]
+        ms = in_turns(calls, 5, 2)
+        rec[f"corner_apply f64 {n} x {n} by {n} x {m}"] = {"ms": ms}
+        print(f"  corner_apply f64 {n} x {n} by {n} x {m} (CUDA graphs): "
+              + ", ".join(f"{v} {t:.4f} ms" for v, t in ms.items()), flush=True)
+    return rec
+
+
+def ablate_adjoint(libs, in_turns, stream, dev, parent) -> dict:
+    """:func:`ablate`'s part for K9's ``adjoint_commit`` in CUDA graphs, f64:
+    at the C4v D=8 adjoint's sizes (site 1,126, C 4,715, T 232,886; fresh
+    buffers, as that adjoint passes) and at a 2-site-sized one (2,252 site
+    entries, the 2-site env's 1,989,344 cut at an odd 37,721, uT a view off
+    its 16-byte boundary, as the generic adjoint passes), the parent's first
+    and last, this checkout's between (:data:`ADJ_COPIES`).  The first call
+    of each is held to the twin (da bit-exact, delta <= 1e-12, ctl
+    bit-exact); the timing states never end (u repeats: delta never grows)."""
+    from tpeps_torch.kernels import frozen as kfrozen
+
+    gen = torch.Generator(device=dev).manual_seed(19)
+    rnd = lambda n: torch.randn(n, generator=gen, device=dev, dtype=torch.float64)
+    part = torch.empty(4096, dtype=torch.float64, device=dev)
+    keys = ([("parent", "parent")] if parent is not None else []) + list(ADJ_COPIES.items())
+    rec = {}
+    for label, (na, nC, nT, one_buffer) in {"C4v D=8": (1126, 4715, 232886, False),
+                                            "2-site-sized": (2252, 37721, 1951623, True)}.items():
+        da_i = rnd(na)
+        if one_buffer:
+            v = rnd(nC + nT)
+            uC, uT = v[:nC], v[nC:]
+        else:
+            uC, uT = rnd(nC), rnd(nT)
+        calls, da0 = {}, rnd(na)
+        for key, klabel in keys:
+            fn = libs["frozen_commit.cu", key].tpeps_adjoint_commit_f64
+            st = kfrozen.adjoint_state(da0, uC, uT, 10**9, 0.0)
+            st = kfrozen.AdjointState(da0.clone(), st.scal, st.ctl)
+
+            def call(fn=fn, st=st):
+                return fn(st.da.data_ptr(), da_i.data_ptr(), na, uC.data_ptr(), nC,
+                          uT.data_ptr(), nT, st.scal.data_ptr(), st.ctl.data_ptr(),
+                          part.data_ptr(), stream())
+            err = call()
+            if err:
+                fail(f"adjoint_commit ({klabel}) launch: CUDA error {err}")
+            tw = kfrozen.adjoint_state(da0, uC, uT, 10**9, 0.0)
+            tw = kfrozen.AdjointState(da0.clone(), tw.scal, tw.ctl)
+            kfrozen.adjoint_commit_twin(tw, da_i, uC, uT)
+            e = rel_err(st.scal[:1], tw.scal[:1])
+            check(torch.equal(st.da, tw.da) and torch.equal(st.ctl, tw.ctl)
+                  and e <= TOL[torch.float64],
+                  f"adjoint_commit ({klabel}) {label}: the first call is the twin's (da, "
+                  f"ctl bit-exact, delta rel err {e:.1e})")
+
+            def timed(call=call):
+                if call():
+                    fail("adjoint_commit launch failed")
+            calls[klabel] = timed
+        if parent is not None:
+            calls["parent, again"] = calls["parent"]
+        ms = in_turns(calls, 20, 5)
+        b_ms, _ = bound(8 * (3 * na + nC + nT), na + 2 * (nC + nT), FP64_CC)
+        rec[f"adjoint_commit f64 {label}"] = {"ms": ms, "bound_ms": b_ms, "entries": [na, nC, nT]}
+        print(f"  adjoint_commit f64 {label} (site {na}, C {nC}, T {nT} entries): "
+              + ", ".join(f"{v} {t * 1000:.2f} us" for v, t in ms.items())
+              + f"; bound {b_ms * 1000:.2f} us", flush=True)
+    return rec
+
+
+MIXED_CODE = r"""
+import json, time, numpy as np, torch
+from tpeps_torch.ctm.c4v import move_factored as mf
+from tpeps_torch.ctm.c4v.env import init_env
+from tpeps_torch.ctm.c4v.move_graph import CHAIN_CONV_TOL, CHAIN_MAX_ITER, MoveGraph
+from tpeps_torch.ipeps.ipeps_c4v import symmetrize_c4v
+from tpeps_torch.kernels import LAUNCHES
+torch.backends.cuda.matmul.allow_tf32 = False
+dev, D, chi = torch.device("cuda", 0), 7, 147
+x = np.random.RandomState(0).rand(2, D, D, D, D) - 0.5
+a = symmetrize_c4v(torch.as_tensor(x, dtype=torch.float64), normalize=True).to(dev)
+env = init_env(a, chi, "CTMRG")
+orig, k2 = mf.run_ctmrg, []
+def counted(*args, **kw):
+    before = LAUNCHES["corner_apply"]
+    out = orig(*args, **kw)
+    k2.append(LAUNCHES["corner_apply"] - before)
+    return out
+mf.run_ctmrg = counted
+runs = []
+for _ in range(2):
+    stats, k2[:] = [], []
+    mf.run_ctmrg_mixed(a, env, max_iter=48, conv_tol=1e-8, slice_phys=True, moves_per_sync=4,
+                       stats=stats)
+    runs.append([{"phase": st["phase"], "moves": st["moves"], "seconds": st["seconds"],
+                  "ms_per_move": 1000 * st["seconds"] / max(st["moves"], 1),
+                  "corner_apply_launches": n} for st, n in zip(stats, k2)])
+a32 = a.float()
+g = MoveGraph(a32, chi, n_moves=4)
+g.load(a32, env.C.float(), mf.to_int_layout(env.T, D).float(),
+       mf.cold_start_basis(chi * D * D, chi, torch.float32, dev), max_iter=CHAIN_MAX_ITER,
+       conv_tol=CHAIN_CONV_TOL)
+g.run()
+g.run()
+torch.cuda.synchronize()
+ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+ev[0].record()
+for _ in range(5):
+    g.run()
+ev[1].record()
+ev[1].synchronize()
+print("MIXED " + json.dumps({"runs": runs,
+                             "graphed_f32_ms_per_move": ev[0].elapsed_time(ev[1]) / 20}))
+"""
+
+
+def mixed_compare(parent) -> dict:
+    """``run_ctmrg_mixed`` with bench_case's arguments (phase 7(e), twice:
+    the first run captures its graphs) by phase (moves, host ms/move, K2's
+    launches) and the graphed float32 move (a MoveGraph of 4), in the
+    parent's checkout and in this one, in turns (parent, change, change,
+    parent), each in a process of its own (:data:`MIXED_CODE`)."""
+    out = {}
+    here = Path(__file__).resolve().parent
+    for i, (label, cwd) in enumerate((("parent", Path(parent)), ("change", here),
+                                      ("change", here), ("parent", Path(parent)))):
+        proc = subprocess.run([sys.executable, "-c", MIXED_CODE], cwd=cwd, capture_output=True,
+                              text=True, timeout=600)
+        line = [ln for ln in proc.stdout.splitlines() if ln.startswith("MIXED ")]
+        check(proc.returncode == 0 and bool(line),
+              f"mixed driver in {label}'s checkout: rc {proc.returncode} {proc.stderr[-2000:]}")
+        r = json.loads(line[-1][6:])
+        out[f"{label} {i}"] = r
+        print(f"  mixed driver ({label}): graphed f32 move {r['graphed_f32_ms_per_move']:.3f} "
+              "ms/move; phases " + "; ".join(
+                  ", ".join(f"{p['phase']} {p['moves']} moves {p['ms_per_move']:.2f} ms/move "
+                            f"(K2 {p['corner_apply_launches']})" for p in run)
+                  for run in r["runs"]), flush=True)
+    return out
+
+
 def parent_gemm_tiles(m, n) -> np.ndarray:
     """The parent's ``block_gemm`` tile list (one size for all: 64 x 64 tiles
     of blocks at least 16 wide, else 128 elements a tile), for timing its
@@ -5014,6 +5474,10 @@ def k8_move_compare(parent) -> dict:
     return out
 
 
+# the first 48 eager D=7 chi=147 f64 moves from the cold start (the second of
+# two such runs: the first builds and warms up), then one eager move's peak
+# memory and time, and the graphed move's (MoveGraph, 4 moves a replay): run
+# in a checkout's root by move_compare
 MOVE_CODE = r"""
 import json, time, numpy as np, torch
 from tpeps_torch.ctm.c4v import move_factored as mf
@@ -5122,7 +5586,9 @@ def main() -> None:
     lap(9)
     rec_gen, cg_entry, cg_frozen, cg_train = phase10(dev)
     rec.update(rec_gen)
+    rec["adjoint_commit"]["generic"] = rec.pop("adjoint_commit_generic")
     lap(10)
+    rec["corner_apply"]["f32"]["mixed_driver_phases"] = MIXED_PHASES
     rec["polar_unitary"]["steps_by_run"] = K6_STEPS
     rec["polar_unitary"]["dropped_w_by_run"] = K6_DROPPED
     # launches: on the training path for its kernels, on the large-D slice

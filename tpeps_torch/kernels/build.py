@@ -35,7 +35,7 @@ _SIGNATURES = {
     "tpeps_double_layer_f64": (_vp,) * 6,
     "tpeps_double_layer_f32": (_vp,) * 6,
     "tpeps_corner_apply_f64": (_vp, _i64, _vp, _vp, _vp, _i64, _vp, _i, _i, _i, _vp),
-    "tpeps_corner_apply_f32": (_vp, _i64, _vp, _vp, _i, _i, _vp),
+    "tpeps_corner_apply_f32": (_vp, _i64, _vp, _vp, _vp, _i64, _vp, _i, _i, _i, _vp),
     "tpeps_gram_clusters_f64": (_vp, _vp, _vp, _vp, _i, _vp, _i, _i, _i, _d, _i, _vp),
     "tpeps_gram_clusters_f32": (_vp, _vp, _vp, _vp, _i, _vp, _i, _i, _i, _d, _i, _vp),
     "tpeps_trsm_right_lower_h_f64": (_vp, _vp, _vp, _i, _i, _vp),
@@ -90,6 +90,7 @@ _SIGNATURES = {
 # name -> argtypes of the size queries, which return int64
 _SIZE_QUERIES = {
     "tpeps_corner_apply_scratch_f64": (_i, _i),
+    "tpeps_corner_apply_scratch_f32": (_i, _i),
     "tpeps_gram_scratch_f64": (_i, _i, _i, _i),
     "tpeps_gram_scratch_f32": (_i, _i, _i, _i),
 }

@@ -1,5 +1,9 @@
 """K2 corner apply (``csrc/corner_apply.cu``) and its twin: ``Y = M2 @ P``
-for the enlarged corner as the matrix ``M2[(j,e,f),(i,r,g)]``."""
+for the enlarged corner as the matrix ``M2[(j,e,f),(i,r,g)]``.  float64 on
+the FP64 tensor cores (DMMA); float32 as three TF32 products on the tensor
+cores (each operand split into a TF32 hi and lo part, ``A_hi B_hi + A_hi
+B_lo + A_lo B_hi``), float32's accuracy whatever PyTorch's TF32 settings
+say."""
 
 from __future__ import annotations
 
@@ -25,19 +29,15 @@ def corner_apply(M2, P):
         raise ValueError(f"corner_apply: M2 must be row-major, got strides {M2.stride()}")
     require_contiguous("corner_apply", P=P)
     Y = torch.empty((n, m), dtype=P.dtype, device=P.device)
-    lib = library()
+    lib, sfx = library(), suffix(P)
     with torch.cuda.device(P.device):
-        if P.dtype == torch.float64:
-            scratch = lib.cdll.tpeps_corner_apply_scratch_f64(n, m)
-            lib.check(int(-min(scratch, 0)), "corner_apply")
-            part = torch.empty(max(scratch, 1), dtype=P.dtype, device=P.device)
-            counters = arrival_counters(P.device)
-            err = lib.cdll.tpeps_corner_apply_f64(
-                M2.data_ptr(), M2.stride(0), P.data_ptr(), Y.data_ptr(), part.data_ptr(),
-                part.numel(), counters.data_ptr(), counters.numel(), n, m, stream_of(P))
-        else:
-            err = getattr(lib.cdll, f"tpeps_corner_apply_{suffix(P)}")(
-                M2.data_ptr(), M2.stride(0), P.data_ptr(), Y.data_ptr(), n, m, stream_of(P))
+        scratch = getattr(lib.cdll, f"tpeps_corner_apply_scratch_{sfx}")(n, m)
+        lib.check(int(-min(scratch, 0)), "corner_apply")
+        part = torch.empty(max(scratch, 1), dtype=P.dtype, device=P.device)
+        counters = arrival_counters(P.device)
+        err = getattr(lib.cdll, f"tpeps_corner_apply_{sfx}")(
+            M2.data_ptr(), M2.stride(0), P.data_ptr(), Y.data_ptr(), part.data_ptr(),
+            part.numel(), counters.data_ptr(), counters.numel(), n, m, stream_of(P))
     lib.check(err, "corner_apply")
     LAUNCHES["corner_apply"] += 1
     return Y
