@@ -177,6 +177,24 @@ Phases (any failed check exits non-zero; there is no CPU fallback):
    CPU (1e-8 relative) and, on the card, the central difference along g/|g|
    (> 0) next to |g|; the CPU side of (f) runs in a worker process
    (:func:`gen_small_cpu`) started at the top of the phase, beside (b)-(c).
+11. the C4v observables slice (no kernel of its own: the transfer matvecs,
+   correlators and RDMs are cuBLAS products): (a) on phase 3's D=7 chi=147
+   environment, ``energy_1x1`` (the full plaquette RDM, its peak memory)
+   against ``energy_1x1_lowmem`` (1e-10), ``rdm1x1_sl``, one width-1
+   transfer matvec timed whole and by step beside its bound,
+   ``eval_corrf_SS(8)`` (r=1 against ``eval_obs``'s SS2x1, 1e-10),
+   ``eval_corrf_DD_H(4)``, ``get_Top_spec_c4v(4)`` at m = 30 and 40
+   (normalized, |lambda| the same within 1e-8, the leading Ritz residual
+   <= 1e-8); (b) the entry point ``tpeps_torch.examples.j1j2.ctmrg_j1j2_c4v``
+   on phase 3's state written to JSON (4 SYMEIG moves, correlators to r=4,
+   4 eigenvalues: finite, normalized; OBS_PATH's kernels launched);
+   (c) D=2 chi=16: the entry point on the card against the CPU (energy and
+   correlators 1e-10, spectrum 1e-8) and one epoch of ``optim_j1j2_c4v
+   --top_freq 1`` printing its ``TOP`` line; (d) D=3 chi=27 card against
+   the CPU on one CPU-converged environment: ``get_Top2_spec_c4v`` (1e-8),
+   ``eval_corrf_DD_V`` (1e-10), ``aux_rdm1x1``/``ddA_rdm1x1`` (1e-12), and
+   ``fpcm_move_sl`` after 4 moves against the standard fixed point's energy
+   (1e-9).  The phase must stay within OBS_BUDGET_S.
 
 Phase 2 also holds the kernels of the large-D slice against their twins at
 its shapes: ``eigh_small`` on the Rayleigh-Ritz H of moves 4 and 31 of the
@@ -217,6 +235,7 @@ from __future__ import annotations
 import concurrent.futures
 import contextlib
 import ctypes
+import io
 import itertools
 import json
 import math
@@ -341,6 +360,19 @@ GENERIC = ("block_permute", "block_gemm", "generic_epilogue", "sweep_commit")
 GEN_TRAIN = ("block_permute", "block_gemm", "block_permute_grad", "block_gemm_grad",
              "generic_epilogue", "sweep_commit", "generic_epilogue_vjp", "adjoint_commit")
 GEN_K10 = ("generic_epilogue", "sweep_commit", "generic_epilogue_vjp")
+# the C4v observables slice (phase 11) on phase 3's environment: correlator
+# distances, transfer eigenvalues and the Krylov sizes compared; the entry
+# point's moves and distances; tolerances: energy_1x1 against the low-memory
+# energy and SS r=1 against eval_obs, card against CPU (energies, correlators),
+# spectra (m=30 against m=40, card against CPU), the Ritz residual, FPCM
+# against the standard fixed point; the D=3 checks' chi; the phase's seconds
+OBS_CORRF_R, OBS_DD_R, OBS_TOP_N, OBS_TOP_M = 8, 4, 4, (30, 40)
+OBS_ENTRY_MOVES, OBS_ENTRY_R, OBS_D3_CHI = 4, 4, 27
+OBS_E_TOL, OBS_SMALL_TOL, OBS_SPEC_TOL, OBS_RITZ_TOL, FPCM_E_TOL = 1e-10, 1e-10, 1e-8, 1e-8, 1e-9
+OBS_BUDGET_S = 60.0
+# the kernels the observables entry point runs: init_env's eigh and the
+# SYMEIG moves' Procrustes alignment (the Gram and the polar factor)
+OBS_PATH = ("eigh_small", "gram", "polar_unitary")
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, FP64 on the tensor cores
 # (DMMA) and on the CUDA cores, int8 on the tensor cores
 HBM_BPS, FP64_TC, FP64_CC, INT8_TC = 3.35e12, 67e12, 34e12, 1979e12
@@ -1233,7 +1265,7 @@ def phase3(dev) -> dict:
     print(f"  {TWIN_MOVES} moves: kernels {ms_k:.2f} ms/move, twins {ms_t:.2f} ms/move")
     check(e <= TWIN_SPEC_TOL, f"spectrum after {TWIN_MOVES} moves, kernels vs twins: "
                               f"max abs diff {e:.2e} <= {TWIN_SPEC_TOL:.0e}")
-    return counts
+    return counts, a, env
 
 
 def phase4(dev) -> None:
@@ -1444,13 +1476,15 @@ def oz_shape(A, B, s: int = 8) -> dict:
     kern, lib = (lambda: ozaki.ozaki_gemm(Ap, ea, Bp, eb)), (lambda: torch.matmul(A, B))
     ms, lib_ms = cuda_ms(kern), cuda_ms(lib)
     lib_ms, ms = min(lib_ms, cuda_ms(lib)), min(ms, cuda_ms(kern))
+    twin_ms = cuda_ms(lambda: ozaki.ozaki_gemm_twin(Ap, ea, Bp, eb, 7), reps=2)
     bound_ms, bound_by = bound(nbytes(Ap, Bp, ea, eb, Y), s * (s + 1) // 2 * 2 * m * n * k, INT8_TC)
     fp64_ms, fp64_by = bound(nbytes(A, B, Y), 2 * m * n * k, FP64_TC)
-    print(f"  ozaki_gemm {m} x {k} by {k} x {n}: kernel {ms:.3f} ms, FP64 torch.matmul "
-          f"{lib_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}; the FP64 product's "
-          f"{fp64_ms:.4f} ms, {fp64_by})")
-    return {"shape": [m, k, n], "kp": Ap.shape[2], "slices": s, "ms": ms, "fp64_matmul_ms": lib_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "fp64_bound_ms": fp64_ms}
+    print(f"  ozaki_gemm {m} x {k} by {k} x {n}: kernel {ms:.3f} ms, twin {twin_ms:.3f} ms, "
+          f"FP64 torch.matmul {lib_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}; the FP64 "
+          f"product's {fp64_ms:.4f} ms, {fp64_by})")
+    return {"shape": [m, k, n], "kp": Ap.shape[2], "slices": s, "ms": ms, "twin_ms": twin_ms,
+            "fp64_matmul_ms": lib_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "fp64_bound_ms": fp64_ms}
 
 
 def same_float(x, y) -> bool:
@@ -1546,12 +1580,14 @@ def split_checks(ops, gen, dev) -> dict:
               f"split operand {label}: shape {tuple(X.shape)}")
         split_case(label, X, axis, graph=True)
         ms = graph_ms(lambda: ozaki.ozaki_split(X, 8, 7, axis), reps=5, replays=4)
+        twin_ms = cuda_ms(lambda: ozaki.ozaki_split_twin(X, 8, 7, axis), reps=2)
         bound_ms, _ = split_bound(axis, rows, k)
-        shapes[label] = {"axis": axis, "rows": rows, "k": k, "graph_ms": ms, "bound_ms": bound_ms,
-                         "launches_per_ozaki_move": per_move}
+        shapes[label] = {"axis": axis, "rows": rows, "k": k, "graph_ms": ms, "twin_ms": twin_ms,
+                         "bound_ms": bound_ms, "launches_per_ozaki_move": per_move}
         target = SPLIT_TARGET_MS.get(label)
-        print(f"  ozaki_split {label} (rows {rows}, k {k}): {ms:.4f} ms in CUDA graphs, bound "
-              f"{bound_ms:.4f} ms" + (f", target <= {target} ms" if target else ""), flush=True)
+        print(f"  ozaki_split {label} (rows {rows}, k {k}): {ms:.4f} ms in CUDA graphs (twin "
+              f"{twin_ms:.4f} ms eager), bound {bound_ms:.4f} ms"
+              + (f", target <= {target} ms" if target else ""), flush=True)
         del X
     for m, k in ((5, 1), (7, 31), (6, 33), (9, 147), (4, 7203)):
         X = mixed_exponents((m, k), gen, dev)
@@ -3743,6 +3779,246 @@ def phase10(dev) -> tuple:
 # the timing copies of K10's generic_epilogue and K9's frozen_commit: the
 # launch alone, without the grid barrier, without stores; frozen_commit also
 # without the last block's sum and without the partner gather
+def tm_bound(chi, D_) -> tuple:
+    """One width-1 transfer matvec's least time: 2 chi^3 D^4 + chi^2 D^8
+    multiply-adds on the FP64 tensor cores, or its bytes (the edge and A
+    read, the new edge written)."""
+    D2 = D_ * D_
+    flops = 2.0 * (2 * chi**3 * D2**2 + chi**2 * D2**4)
+    return bound(8.0 * (2 * chi * D2 * chi + D2**4), flops, FP64_TC)
+
+
+def tm_steps_ms(a, env, v) -> dict:
+    """The width-1 matvec's steps timed alone (ms, CUDA events): its three
+    products and the two permutes that lay their operands out."""
+    from tpeps_torch.ctm.c4v.corrf import _aXa
+
+    chi, D2 = env.chi, a.shape[1] ** 2
+    T = env.T
+    with torch.no_grad():
+        A = _aXa(a).reshape(D2 * D2, D2 * D2)
+        Tq = T.transpose(0, 1).reshape(chi, chi * D2)
+        Tw = T.permute(0, 2, 1).reshape(chi * D2, chi)
+        E1 = v.reshape(chi, D2 * chi).transpose(0, 1) @ Tq
+        P1 = E1.reshape(D2, chi, chi, D2).permute(1, 2, 3, 0).reshape(chi * chi, D2 * D2)
+        E2 = P1 @ A
+        P2 = E2.reshape(chi, chi, D2, D2).permute(1, 3, 0, 2).reshape(chi * D2, chi * D2)
+        steps = {
+            "edge T": lambda: v.reshape(chi, D2 * chi).transpose(0, 1) @ Tq,
+            "permute 1": lambda: E1.reshape(D2, chi, chi, D2).permute(1, 2, 3, 0).contiguous(),
+            "product with A": lambda: P1 @ A,
+            "permute 2": lambda: E2.reshape(chi, chi, D2, D2).permute(1, 3, 0, 2).contiguous(),
+            "closing T": lambda: P2 @ Tw,
+        }
+        return {k: cuda_ms(f) for k, f in steps.items()}
+
+
+def obs_spectrum_checks(a, env, dev) -> float:
+    """(a)'s transfer spectrum: normalized, the same at m = 30 and 40, and
+    the Ritz residual of the leading pair; returns the seconds at m = 30."""
+    from tpeps_torch.ctm.c4v.transferops import get_Top_spec_c4v, top_matvec
+    from tpeps_torch.linalg.arnoldi import arnoldi_eigs_vecs, seeded_start
+
+    specs, secs = {}, {}
+    for m in OBS_TOP_M:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        specs[m] = get_Top_spec_c4v(OBS_TOP_N, a, env, m=m)
+        secs[m] = time.perf_counter() - t0
+        print(f"  get_Top_spec_c4v({OBS_TOP_N}, m={m}) {secs[m]:.2f} s: "
+              + ", ".join(f"{re:+.12f}{im:+.12f}j" for re, im in specs[m]))
+    w30, w40 = (specs[m][:, 0] + 1j * specs[m][:, 1] for m in OBS_TOP_M)
+    check(abs(abs(w30[0]) - 1.0) < 1e-12, f"|lambda_0| = {abs(w30[0]):.15f} (normalized)")
+    e = float(np.abs(np.sort(np.abs(w30)) - np.sort(np.abs(w40))).max())
+    check(e <= OBS_SPEC_TOL, f"|lambda| at m={OBS_TOP_M[0]} and m={OBS_TOP_M[1]}: max diff "
+                             f"{e:.2e} <= {OBS_SPEC_TOL:.0e}")
+    mv = top_matvec(a, env)
+    n = env.chi * a.shape[1] ** 2 * env.chi
+    w, X = arnoldi_eigs_vecs(mv, seeded_start(n, a), 1, m=OBS_TOP_M[0])
+    x = torch.as_tensor(X[:, 0].astype(np.complex128), device=dev)
+    with torch.no_grad():
+        Ax = torch.complex(mv(x.real.contiguous()), mv(x.imag.contiguous()))
+    res = float(torch.linalg.vector_norm(Ax - complex(w[0]) * x)) / abs(w[0])
+    check(res <= OBS_RITZ_TOL, f"Ritz residual |Av - lambda v| / |lambda| = {res:.2e} <= "
+                               f"{OBS_RITZ_TOL:.0e} for lambda_0 = {complex(w[0]):.12f}")
+    return secs[OBS_TOP_M[0]]
+
+
+def run_entry(argv) -> tuple:
+    """``ctmrg_j1j2_c4v.main(argv)``, its printed lines echoed indented."""
+    from tpeps_torch.examples.j1j2 import ctmrg_j1j2_c4v
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = ctmrg_j1j2_c4v.main(argv)
+    for line in buf.getvalue().splitlines():
+        print(f"    | {line}")
+    return out
+
+
+def obs_small(where, path) -> tuple:
+    """(c)'s D=2 entry point on ``where``: energy, correlators, spectrum."""
+    e, _, _, out = run_entry(
+        ["--instate", path, "--bond_dim", str(D_SMALL), "--chi", str(CHI_SMALL), "--j2", str(J2),
+         "--CTMARGS_ctm_max_iter", "300", "--CTMARGS_ctm_conv_tol", "1e-12", "--corrf_r",
+         str(OBS_ENTRY_R), "--top_n", str(OBS_TOP_N), "--GLOBALARGS_device", str(where)])
+    return e, out["ss"].cpu(), out["top"]
+
+
+def phase11(dev, a, env) -> tuple:
+    print(f"== phase 11: the C4v observables slice, J1-J2 D={D} chi={CHI} float64", flush=True)
+    from tpeps_torch.ctm.c4v import rdm, transferops
+    from tpeps_torch.ctm.c4v.ctmrg import run_fixed_point
+    from tpeps_torch.ctm.c4v.env import EnvC4v, init_env
+    from tpeps_torch.ctm.c4v.fpcm import fpcm_move_sl
+    from tpeps_torch.examples.j1j2 import optim_j1j2_c4v
+    from tpeps_torch.ipeps.ipeps_c4v import IPEPS_C4V
+    from tpeps_torch.kernels import launch_counts, reset_launch_counts
+    from tpeps_torch.models.j1j2 import J1J2_C4V_BIPARTITE
+
+    t_phase = time.perf_counter()
+    model = J1J2_C4V_BIPARTITE(j1=J1, j2=J2, device=dev)
+    # (a) phase 3's environment
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    e_full = float(model.energy_1x1(a, env))
+    t_full = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    e_low = float(model.energy_1x1_lowmem(a, env))
+    print(f"  energy_1x1 {e_full:.14f} in {t_full:.2f} s (peak {peak / 2**30:.2f} GiB above the "
+          f"state), energy_1x1_lowmem {e_low:.14f}")
+    check(abs(e_full - e_low) <= OBS_E_TOL,
+          f"energy_1x1 vs energy_1x1_lowmem |dE| = {abs(e_full - e_low):.2e} <= {OBS_E_TOL:.0e}")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    rho = rdm.rdm1x1_sl(a, env)
+    torch.cuda.synchronize()
+    print(f"  rdm1x1_sl in {time.perf_counter() - t0:.2f} s (peak "
+          f"{(torch.cuda.max_memory_allocated() - base) / 2**30:.2f} GiB above the state)")
+    check(bool(torch.isfinite(rho).all()) and abs(float(torch.trace(rho)) - 1) < 1e-12
+          and float((rho - rho.mH).abs().max()) < 1e-14, "rdm1x1_sl finite, trace 1, hermitian")
+    mv = transferops.top_matvec(a, env)
+    v = torch.rand(env.chi * D * D * env.chi, dtype=a.dtype, device=dev,
+                   generator=torch.Generator(dev).manual_seed(0))
+    with torch.no_grad():
+        ms = cuda_ms(lambda: mv(v))
+    b_ms, b_by = tm_bound(env.chi, D)
+    print(f"  one width-1 transfer matvec {ms:.3f} ms (CUDA events), bound {b_ms:.3f} ms "
+          f"({b_by}): {b_ms / ms:.0%} of the bound's rate; by step: "
+          + ", ".join(f"{k} {t:.3f}" for k, t in tm_steps_ms(a, env, v).items()))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ss = model.eval_corrf_SS(a, env, OBS_CORRF_R)["ss"]
+    torch.cuda.synchronize()
+    t_ss = time.perf_counter() - t0
+    obs, labels = model.eval_obs(a, env)
+    print(f"  eval_corrf_SS({OBS_CORRF_R}) {t_ss:.2f} s: "
+          + ", ".join(f"r={i + 1} {x:.12f}" for i, x in enumerate(ss.tolist())))
+    ss2x1 = obs[labels.index("SS2x1")]
+    check(bool(torch.isfinite(ss).all()) and abs(float(ss[0]) - ss2x1) <= OBS_E_TOL,
+          f"SS r=1 {float(ss[0]):.14f} vs eval_obs SS2x1 {ss2x1:.14f} <= {OBS_E_TOL:.0e}")
+    t0 = time.perf_counter()
+    dd = model.eval_corrf_DD_H(a, env, OBS_DD_R)["dd"]
+    torch.cuda.synchronize()
+    t_dd = time.perf_counter() - t0
+    print(f"  eval_corrf_DD_H({OBS_DD_R}) {t_dd:.2f} s: "
+          + ", ".join(f"{x:.12f}" for x in dd.tolist()))
+    check(bool(torch.isfinite(dd).all()), "dimer-dimer correlations finite")
+    t_top = obs_spectrum_checks(a, env, dev)
+    print(f"  (a) took {time.perf_counter() - t_phase:.1f} s")
+    del rho, v, mv
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # (b) the entry point at full width on phase 3's state
+        path = str(Path(tmp) / "d7.json")
+        IPEPS_C4V(a.detach().cpu()).write_to_file(path)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        e7, obs7, _, out7 = run_entry(
+            ["--instate", path, "--bond_dim", str(D), "--chi", str(CHI), "--j2", str(J2),
+             "--CTMARGS_ctm_max_iter", str(OBS_ENTRY_MOVES), "--corrf_r", str(OBS_ENTRY_R),
+             "--top_n", str(OBS_TOP_N)])
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        t_entry = time.perf_counter() - t0
+        print(f"  (b) ctmrg_j1j2_c4v D={D} chi={CHI}, {OBS_ENTRY_MOVES} moves: {t_entry:.2f} s, "
+              f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches {counts}")
+        top7 = out7["top"]
+        check(all(math.isfinite(x) for x in [e7] + [abs(complex(o)) for o in obs7]
+                  + out7["ss"].tolist() + top7.ravel().tolist()), "entry point outputs finite")
+        check(abs(math.hypot(*top7[0]) - 1.0) < 1e-12, "entry point spectrum normalized")
+        for name in OBS_PATH:
+            check(counts[name] > 0, f"{name} launched {counts[name]} times on the entry point")
+
+        # (c) D=2 chi=16: the entry point on the card against the CPU
+        t0 = time.perf_counter()
+        path2 = str(Path(tmp) / "d2.json")
+        IPEPS_C4V(bench_state(D_SMALL, "cpu")).write_to_file(path2)
+        (e_c, ss_c, top_c), (e_d, ss_d, top_d) = (obs_small(w, path2) for w in ("cpu", dev))
+        check(abs(e_c - e_d) <= OBS_SMALL_TOL,
+              f"(c) energy card vs CPU |dE| = {abs(e_c - e_d):.2e} <= {OBS_SMALL_TOL:.0e}")
+        e = float((ss_c - ss_d).abs().max())
+        check(e <= OBS_SMALL_TOL, f"(c) SS correlators card vs CPU {e:.2e} <= {OBS_SMALL_TOL:.0e}")
+        e = float(np.abs(top_c - top_d).max())
+        check(e <= OBS_SPEC_TOL, f"(c) spectrum card vs CPU {e:.2e} <= {OBS_SPEC_TOL:.0e}")
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            optim_j1j2_c4v.main(
+                ["--bond_dim", str(D_SMALL), "--chi", str(CHI_SMALL), "--j2", str(J2),
+                 "--opt_max_iter", "1", "--CTMARGS_projector_svd_method", "POWER",
+                 "--OPTARGS_line_search", "backtracking", "--OPTARGS_line_search_svd_method",
+                 "POWER", "--out_prefix", str(Path(tmp) / "opt"), "--top_freq", "1",
+                 "--top_n", str(OBS_TOP_N)])
+        tops = [l for l in buf.getvalue().splitlines() if l.startswith("TOP ")]
+        print("    | " + (tops[0] if tops else "(no TOP line)"))
+        check(len(tops) == 1, f"optim_j1j2_c4v --top_freq 1, one epoch: {len(tops)} TOP line")
+        print(f"  (c) took {time.perf_counter() - t0:.1f} s")
+
+    # (d) D=3: card against the CPU on one CPU-converged environment
+    t0 = time.perf_counter()
+    a3_c = bench_state(3, "cpu")
+    env3_c, n3, _, _ = run_fixed_point(a3_c, init_env(a3_c, OBS_D3_CHI), max_iter=300,
+                                       conv_tol=1e-11)
+    a3, env3 = a3_c.to(dev), EnvC4v(env3_c.C.to(dev), env3_c.T.to(dev))
+    model3 = {w: J1J2_C4V_BIPARTITE(j1=J1, j2=J2, device=w) for w in ("cpu", dev)}
+    res = []
+    for w, aw, ew in (("cpu", a3_c, env3_c), (dev, a3, env3)):
+        res.append((transferops.get_Top2_spec_c4v(3, aw, ew),
+                    model3[w].eval_corrf_DD_V(aw, ew, 2)["dd"].cpu(),
+                    rdm.aux_rdm1x1(ew, 3).cpu(), rdm.ddA_rdm1x1(aw, ew).cpu()))
+    (top2_c, ddv_c, aux_c, dda_c), (top2_d, ddv_d, aux_d, dda_d) = res
+    print(f"  (d) D=3 chi={OBS_D3_CHI}: width-2 spectrum "
+          + ", ".join(f"{re:+.12f}{im:+.12f}j" for re, im in top2_d)
+          + "; DD_V " + ", ".join(f"{x:.12f}" for x in ddv_d.tolist()))
+    e = float(np.abs(top2_c - top2_d).max())
+    check(e <= OBS_SPEC_TOL, f"(d) width-2 spectrum card vs CPU {e:.2e} <= {OBS_SPEC_TOL:.0e}")
+    e = float((ddv_c - ddv_d).abs().max())
+    check(e <= OBS_SMALL_TOL, f"(d) eval_corrf_DD_V card vs CPU {e:.2e} <= {OBS_SMALL_TOL:.0e}")
+    e = max(rel_err(aux_d, aux_c), rel_err(dda_d, dda_c))
+    check(e <= TOL[torch.float64], f"(d) aux_rdm1x1, ddA_rdm1x1 card vs CPU rel {e:.2e} <= "
+                                   f"{TOL[torch.float64]:.0e}")
+    e_std = float(model3[dev].energy_1x1_lowmem(a3, env3))
+    env_w, *_ = run_fixed_point(a3, init_env(a3, OBS_D3_CHI), max_iter=4, conv_tol=1e-30)
+    t1 = time.perf_counter()
+    e_fp = float(model3[dev].energy_1x1_lowmem(a3, fpcm_move_sl(a3, env_w)))
+    print(f"  (d) FPCM after 4 moves {time.perf_counter() - t1:.2f} s: energy {e_fp:.14f}, the "
+          f"standard fixed point's ({n3} moves) {e_std:.14f}")
+    check(abs(e_fp - e_std) <= FPCM_E_TOL,
+          f"(d) FPCM energy vs the standard fixed point {abs(e_fp - e_std):.2e} <= {FPCM_E_TOL:.0e}")
+    print(f"  (d) took {time.perf_counter() - t0:.1f} s")
+    secs = time.perf_counter() - t_phase
+    print(f"  seconds: energy_1x1 {t_full:.2f}, eval_corrf_SS({OBS_CORRF_R}) {t_ss:.2f}, "
+          f"eval_corrf_DD_H({OBS_DD_R}) {t_dd:.2f}, spectrum m={OBS_TOP_M[0]} {t_top:.2f}, "
+          f"entry point {t_entry:.2f}; matvec {ms:.3f} ms (bound {b_ms:.3f}); phase {secs:.1f}")
+    check(secs <= OBS_BUDGET_S, f"phase 11 took {secs:.1f} s <= {OBS_BUDGET_S:.0f} s")
+    return counts
+
+
 COMMIT_COPIES = {0: "whole", 1: "launch and set-up only", 2: "no grid barrier", 4: "no stores"}
 FROZEN_COPIES = {**COMMIT_COPIES, 8: "no last block's sum", 16: "no partner gather"}
 # the timing copies of K9's frozen_epilogue_vjp and K10's generic_epilogue_vjp
@@ -5565,7 +5841,7 @@ def main() -> None:
     rec = phase2(dev)
     rec.update(phase2_large_d(dev))
     lap(2)
-    counts_fwd = phase3(dev)
+    counts_fwd, a7, env7 = phase3(dev)
     lap(3)
     phase4(dev)
     lap(4)
@@ -5588,6 +5864,9 @@ def main() -> None:
     rec.update(rec_gen)
     rec["adjoint_commit"]["generic"] = rec.pop("adjoint_commit_generic")
     lap(10)
+    counts_obs = phase11(dev, a7, env7)
+    del a7, env7
+    lap(11)
     rec["corner_apply"]["f32"]["mixed_driver_phases"] = MIXED_PHASES
     rec["polar_unitary"]["steps_by_run"] = K6_STEPS
     rec["polar_unitary"]["dropped_w_by_run"] = K6_DROPPED
@@ -5615,7 +5894,8 @@ def main() -> None:
          "launches_abelian_training": counts_abtr[name],
          "launches_generic_entry_point": cg_entry[name],
          "launches_generic_frozen": cg_frozen[name],
-         "launches_generic_training": cg_train[name], **rec[name]}
+         "launches_generic_training": cg_train[name],
+         "launches_c4v_observables": counts_obs[name], **rec[name]}
         for name in SOURCES
     ]
     print(smi)

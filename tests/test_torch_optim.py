@@ -139,12 +139,14 @@ def test_optimize_state_canonical():
     assert e_fin < -0.6, f"expected Heisenberg-like energy, got {e_fin}"
 
 
-def test_example_entry_point_and_state_file(tmp_path):
+def test_example_entry_point_and_state_file(tmp_path, capsys):
     """The port's entry point (``python -m
     tpeps_torch.examples.j1j2.optim_j1j2_c4v``) on the CPU with the POWER
     projector (on the K3/K6 twins, gradient and line search; SYMEIG for the
     observables): two epochs, a finite final energy; the state file its
-    best-state writer wrote reads back bit-identically in tpeps."""
+    best-state writer wrote reads back bit-identically in tpeps;
+    ``--top_freq 0`` prints no transfer spectrum and changes nothing else,
+    as in the JAX script."""
     from tpeps_torch.examples.j1j2 import optim_j1j2_c4v
 
     prefix = str(tmp_path / "run")
@@ -159,8 +161,10 @@ def test_example_entry_point_and_state_file(tmp_path):
     assert a.device == CPU and env.C.device == CPU
     site_j = np.asarray(j_read_ipeps_c4v(prefix + "_state.json").site())
     np.testing.assert_array_equal(a.numpy(), site_j)
-    with pytest.raises(NotImplementedError):
-        optim_j1j2_c4v.main(argv + ["--top_freq", "0"])
+    capsys.readouterr()
+    e_top0, a_top0, _, _ = optim_j1j2_c4v.main(argv + ["--top_freq", "0"])
+    assert "TOP" not in capsys.readouterr().out
+    assert e_top0 == e_fin and torch.equal(a_top0, a)
 
 
 def test_initial_site_from_instate(tmp_path):

@@ -98,3 +98,37 @@ def init_from_ipeps_pbc(a, chi: int, dtype) -> EnvC4v:
     T = torch.zeros((chi, chi, D2), dtype=dtype, device=a.device)
     T[:n, :n, :] = t[:n, :n, :].to(dtype)
     return EnvC4v(C, T)
+
+
+def compute_multiplets(C, eps_multiplet_gap: float = 1.0e-10):
+    """Degeneracy structure of the corner spectrum, on the host: the
+    descending |eigenvalues| of ``C`` and the sizes of its multiplets
+    (levels closer than ``eps_multiplet_gap`` share one)."""
+    D = torch.linalg.eigvalsh(C).abs().sort(descending=True).values.cpu()
+    D = torch.cat([D, torch.zeros(1, dtype=D.dtype)])
+    m = []
+    l = 0
+    for i in range(C.shape[0]):
+        l += 1
+        if float(D[i] - D[i + 1]) > eps_multiplet_gap:
+            m.append(l)
+            l = 0
+    return D[:-1], m
+
+
+def env_c4v_to_generic(a, env: EnvC4v):
+    """Expand the single (C, T) pair into the per-site/per-direction generic
+    environment dictionaries of a 1x1 cell: all four corners equal C, each
+    T oriented by the generic index conventions.
+
+    :return: ``(sites, vertexToSite, C_dict, T_dict)``
+    """
+    c = (0, 0)
+    C_dict = {(c, v): env.C for v in ((-1, -1), (1, -1), (1, 1), (-1, 1))}
+    T_dict = {
+        (c, (0, -1)): env.T.permute(0, 2, 1),
+        (c, (-1, 0)): env.T,
+        (c, (0, 1)): env.T.permute(2, 0, 1),
+        (c, (1, 0)): env.T.permute(0, 2, 1),
+    }
+    return {c: a}, (lambda coord: c), C_dict, T_dict

@@ -10,16 +10,21 @@ differentiation of the fixed point (default) or a checkpointed window of
 moves (``--CTMARGS_grad_mode scan``); ``--CTMARGS_projector_svd_method
 POWER`` puts the projector of the differentiated fixed point on the K3/K6
 kernels, ``--OPTARGS_line_search_svd_method POWER`` that of the line
-search; observables converge with SYMEIG.  A random start comes from a
-``torch.Generator``, so it differs from the JAX script's for the same seed.
+search; observables converge with SYMEIG.  With ``--top_freq N`` > 0, every
+N-th epoch also prints ``TOP {"re": [...], "im": [...]}``, the ``--top_n``
+leading eigenvalues of the width-1 transfer operator.  A random start comes
+from a ``torch.Generator``, so it differs from the JAX script's for the same
+seed.
 """
 
 from __future__ import annotations
 
+import json
 import logging
 import sys
 
 from tpeps_torch.config import configure, get_args_parser
+from tpeps_torch.ctm.c4v.transferops import get_Top_spec_c4v
 from tpeps_torch.examples.optim_common_c4v import initial_site_c4v, optimize_c4v
 from tpeps_torch.models.j1j2 import J1J2_C4V_BIPARTITE
 
@@ -33,7 +38,8 @@ def make_parser():
     parser.add_argument("--hz_stag", type=float, default=0.0, help="staggered mag. field")
     parser.add_argument("--delta_zz", type=float, default=1.0, help="easy-axis NN anisotropy")
     parser.add_argument("--top_freq", type=int, default=-1,
-                        help="transfer-operator spectrum frequency (not ported yet)")
+                        help="print the transfer-operator spectrum every top_freq epochs "
+                        "(none when <= 0)")
     parser.add_argument("--top_n", type=int, default=2,
                         help="number of transfer-operator eigenvalues")
     return parser
@@ -43,9 +49,6 @@ def main(argv=None):
     args, unknown_args = make_parser().parse_known_args(argv)
     if unknown_args:
         raise SystemExit(f"args not recognized: {unknown_args}")
-    if args.top_freq >= 0:
-        raise NotImplementedError("--top_freq: transfer-operator spectra are not ported "
-                                  "to tpeps_torch yet")
     cfg = configure(args)
     logging.basicConfig(level=logging.INFO,
                         filename=cfg.main.out_prefix + ".log"
@@ -54,7 +57,14 @@ def main(argv=None):
                                delta_zz=args.delta_zz, dtype=cfg.global_args.torch_dtype,
                                device=cfg.global_args.torch_device)
     A0 = initial_site_c4v(cfg, model.phys_dim)
-    return optimize_c4v(cfg, model, model.energy_1x1_lowmem, A0)
+
+    def top_spec(a, env, epoch):
+        if args.top_freq > 0 and epoch % args.top_freq == 0:
+            l = get_Top_spec_c4v(args.top_n, a, env)
+            print("TOP " + json.dumps({"re": [float(x) for x in l[:, 0]],
+                                       "im": [float(x) for x in l[:, 1]]}))
+
+    return optimize_c4v(cfg, model, model.energy_1x1_lowmem, A0, obs_extra=top_spec)
 
 
 if __name__ == "__main__":

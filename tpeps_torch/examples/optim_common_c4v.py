@@ -113,3 +113,19 @@ def optimize_c4v(cfg, model, energy_f, A0, obs_extra=None, grad_stats=None):
     print(", ".join([f"{cfg.main.opt_max_iter}", f"{e_fin}"] + [str(v) for v in obs_values]))
     print(f"FINAL {e_fin}")
     return e_fin, a, env, history
+
+
+def ctmrg_c4v(cfg, model, energy_f, A0=None):
+    """Converged CTMRG and the observables of a stored or random C4v state.
+
+    :return: ``(energy, a, env, obs_values, obs_labels)``
+    """
+    a = initial_site_c4v(cfg, model.phys_dim) if A0 is None else A0
+    a = symmetrize_c4v(a, normalize=True)
+    env = converge_c4v(cfg, a)
+    with torch.no_grad():
+        e = float(energy_f(a, env))
+    obs_values, obs_labels = model.eval_obs(a, env)
+    print(", ".join(["epoch", "energy"] + obs_labels))
+    print(", ".join(["FINAL", f"{e}"] + [str(v) for v in obs_values]))
+    return e, a, env, obs_values, obs_labels

@@ -1,9 +1,10 @@
 """Spin-1/2 J1-J2(-J3) model (counterpart of ``J1J2`` and
 ``J1J2_C4V_BIPARTITE`` in tpeps/models/j1j2.py): ``J1J2`` builds the
 Hamiltonian terms (the 2x2-plaquette term ``get_hp`` that the abelian model
-contracts with its RDMs, the bond operators, the observables' operators);
-``J1J2_C4V_BIPARTITE`` adds the C4v energy and observables.  The operators
-live on ``device``: the card unless the caller asks for the CPU."""
+contracts with its RDMs, its rotated form ``hp_rot``, the bond operators,
+the observables' operators); ``J1J2_C4V_BIPARTITE`` adds the C4v energies,
+observables and correlation functions.  The operators live on ``device``:
+the card unless the caller asks for the CPU."""
 
 from __future__ import annotations
 
@@ -11,6 +12,7 @@ from math import sqrt
 
 import torch
 
+from ..ctm.c4v import corrf as corrf_c4v
 from ..ctm.c4v import rdm as rdm_c4v
 from ..ctm.c4v.env import EnvC4v
 from ..groups import su2
@@ -85,7 +87,16 @@ class J1J2:
             )
 
         self.get_hp = get_hp
+        self.hp_rot = torch.einsum("xj,yk,ixylauvd,ub,vc->ijklabcd", rot, rot, get_hp((0, 0)),
+                                   rot, rot)
         self.obs_ops = {"sz": s2.SZ(), "sp": s2.SP(), "sm": s2.SM()}
+        # the chiral plaquette coupling: J1J2LAMBDA_C4V_BIPARTITE sets it
+        self.lmbd = 0.0
+
+    def _no_lambda(self, what):
+        if self.lmbd != 0:
+            raise ValueError(f"{what} does not include the lambda chiral plaquette term; "
+                             "use J1J2LAMBDA_C4V_BIPARTITE (tpeps_torch.models.j1j2lambda)")
 
 
 class J1J2_C4V_BIPARTITE(J1J2):
@@ -96,21 +107,42 @@ class J1J2_C4V_BIPARTITE(J1J2):
         super().__init__(j1=j1, j2=j2, j3=j3, hz_stag=hz_stag, delta_zz=delta_zz,
                          h_uni=h_uni, dtype=dtype, device=device)
 
-    def energy_1x1_lowmem(self, a, env: EnvC4v):
-        """Energy per site from the NN + NNN (+ 3x1) RDMs; differentiable in
-        ``a`` and ``env``."""
-        rho_nn = rdm_c4v.rdm2x2_NN_lowmem_sl(a, env, sym_pos_def=True)
+    def energy_1x1(self, a, env: EnvC4v):
+        """Energy per site from the full 2x2-plaquette RDM (+ the 3x1 RDM for
+        J3)."""
+        self._no_lambda("energy_1x1")
+        rho2x2 = rdm_c4v.rdm2x2(a, env, sym_pos_def=True)
+        e = torch.einsum("ijklabcd,ijklabcd", rho2x2, self.hp_rot)
+        if abs(self.j3) > 0:
+            rho3x1 = rdm_c4v.rdm3x1(a, env, sym_pos_def=True)
+            e = e + 2 * self.j3 * _contract(rho3x1, self.SS)
+        return _cast_to_real(e)
+
+    def _energy_nn_nnn(self, a, env, rdm_nn, rdm_nnn):
+        rho_nn = rdm_nn(a, env, sym_pos_def=True)
         e = 2.0 * self.j1 * _contract(rho_nn, self.SS_delta_zz_rot)
         e = e - 0.5 * self.hz_stag * _contract(rho_nn, self.hz_2x1_rot)
         if self._h_uni_norm > 0:
             e = e + 0.5 * _contract(rho_nn, self.huni_2x1_rot)
         if abs(self.j2) > 0:
-            rho_nnn = rdm_c4v.rdm2x2_NNN_lowmem_sl(a, env, sym_pos_def=True)
+            rho_nnn = rdm_nnn(a, env, sym_pos_def=True)
             e = e + 2.0 * self.j2 * _contract(rho_nnn, self.SS)
         if abs(self.j3) > 0:
             rho3x1 = rdm_c4v.rdm3x1_sl(a, env, sym_pos_def=True)
             e = e + 2 * self.j3 * _contract(rho3x1, self.SS)
         return _cast_to_real(e)
+
+    def energy_1x1_lowmem(self, a, env: EnvC4v):
+        """Energy per site from the NN + NNN (+ 3x1) RDMs; differentiable in
+        ``a`` and ``env``."""
+        self._no_lambda("energy_1x1_lowmem")
+        return self._energy_nn_nnn(a, env, rdm_c4v.rdm2x2_NN_lowmem_sl,
+                                   rdm_c4v.rdm2x2_NNN_lowmem_sl)
+
+    def energy_1x1_tiled(self, a, env: EnvC4v):
+        """Energy per site through the ``*_tiled`` RDM entry points."""
+        self._no_lambda("energy_1x1_tiled")
+        return self._energy_nn_nnn(a, env, rdm_c4v.rdm2x2_NN_tiled, rdm_c4v.rdm2x2_NNN_tiled)
 
     @torch.no_grad()
     def eval_obs(self, a, env: EnvC4v):
@@ -134,3 +166,43 @@ class J1J2_C4V_BIPARTITE(J1J2):
         if abs(self.j3) > 0:
             labels += ["SS3x1"]
         return [obs[l] for l in labels], labels
+
+    @torch.no_grad()
+    def eval_corrf_SS(self, a, env: EnvC4v, dist: int):
+        """Spin-spin correlations <S(0).S(r)>, r = 1..dist+1, with the
+        bipartite rotation on the second operator at odd distances."""
+        sz = self.obs_ops["sz"]
+        sx = 0.5 * (self.obs_ops["sp"] + self.obs_ops["sm"])
+        isy = -0.5 * (self.obs_ops["sp"] - self.obs_ops["sm"])  # i*Sy
+        rot = su2.get_rot_op(self.phys_dim, dtype=self.dtype, device=self.device)
+
+        def bilat(op):
+            op_rot = torch.einsum("ki,kl,lj->ij", rot, op, rot)
+            return lambda r: op_rot if r % 2 == 0 else op
+
+        szsz = corrf_c4v.corrf_1sO1sO(a, env, sz, bilat(sz), dist)
+        sxsx = corrf_c4v.corrf_1sO1sO(a, env, sx, bilat(sx), dist)
+        nsysy = corrf_c4v.corrf_1sO1sO(a, env, isy, bilat(isy), dist)
+        return {"ss": szsz + sxsx - nsysy, "szsz": szsz, "sxsx": sxsx, "sysy": -nsysy}
+
+    def _SS_rot_pair(self):
+        """S.S with the bipartite rotation on the first spin, and its image
+        with the rotation on the second spin."""
+        rot = su2.get_rot_op(self.phys_dim, dtype=self.dtype, device=self.device)
+        SS_rot = torch.einsum("ki,kjcb,ca->ijab", rot, self.SS, rot)
+        return SS_rot, SS_rot.permute(1, 0, 3, 2)
+
+    @torch.no_grad()
+    def eval_corrf_DD_H(self, a, env: EnvC4v, dist: int):
+        """Horizontal dimer-dimer correlations <(S(r+3).S(r+2))(S(1).S(0))>."""
+        SS_rot, op_rot = self._SS_rot_pair()
+        return {"dd": corrf_c4v.corrf_2sOH2sOH_E1(
+            a, env, SS_rot, lambda r: SS_rot if r % 2 == 0 else op_rot, dist)}
+
+    @torch.no_grad()
+    def eval_corrf_DD_V(self, a, env: EnvC4v, dist: int):
+        """Vertical dimer-dimer correlations <(S(r+1,1).S(r+1,0))(S(0,1).S(0,0))>
+        through the width-2 channel."""
+        SS_rot, op_rot = self._SS_rot_pair()
+        return {"dd": corrf_c4v.corrf_2sOV2sOV_E2(
+            a, env, SS_rot, lambda r: SS_rot if r % 2 == 0 else op_rot, dist)}
