@@ -3776,9 +3776,6 @@ def phase10(dev) -> tuple:
     return rec, counts_entry, counts_frozen, counts_train
 
 
-# the timing copies of K10's generic_epilogue and K9's frozen_commit: the
-# launch alone, without the grid barrier, without stores; frozen_commit also
-# without the last block's sum and without the partner gather
 def tm_bound(chi, D_) -> tuple:
     """One width-1 transfer matvec's least time: 2 chi^3 D^4 + chi^2 D^8
     multiply-adds on the FP64 tensor cores, or its bytes (the edge and A
@@ -3790,27 +3787,17 @@ def tm_bound(chi, D_) -> tuple:
 
 def tm_steps_ms(a, env, v) -> dict:
     """The width-1 matvec's steps timed alone (ms, CUDA events): its three
-    products and the two permutes that lay their operands out."""
-    from tpeps_torch.ctm.c4v.corrf import _aXa
+    products and the two permutes that lay their operands out, as
+    ``corrf._column`` runs them."""
+    from tpeps_torch.ctm.c4v.corrf import _aXa, _column_steps
 
-    chi, D2 = env.chi, a.shape[1] ** 2
-    T = env.T
+    out = {}
     with torch.no_grad():
-        A = _aXa(a).reshape(D2 * D2, D2 * D2)
-        Tq = T.transpose(0, 1).reshape(chi, chi * D2)
-        Tw = T.permute(0, 2, 1).reshape(chi * D2, chi)
-        E1 = v.reshape(chi, D2 * chi).transpose(0, 1) @ Tq
-        P1 = E1.reshape(D2, chi, chi, D2).permute(1, 2, 3, 0).reshape(chi * chi, D2 * D2)
-        E2 = P1 @ A
-        P2 = E2.reshape(chi, chi, D2, D2).permute(1, 3, 0, 2).reshape(chi * D2, chi * D2)
-        steps = {
-            "edge T": lambda: v.reshape(chi, D2 * chi).transpose(0, 1) @ Tq,
-            "permute 1": lambda: E1.reshape(D2, chi, chi, D2).permute(1, 2, 3, 0).contiguous(),
-            "product with A": lambda: P1 @ A,
-            "permute 2": lambda: E2.reshape(chi, chi, D2, D2).permute(1, 3, 0, 2).contiguous(),
-            "closing T": lambda: P2 @ Tw,
-        }
-        return {k: cuda_ms(f) for k, f in steps.items()}
+        x = v.reshape(env.chi, -1, env.chi)
+        for name, step in _column_steps(_aXa(a), env.T):
+            out[name] = cuda_ms(lambda: step(x))
+            x = step(x)
+    return out
 
 
 def obs_spectrum_checks(a, env, dev) -> float:
@@ -4019,6 +4006,9 @@ def phase11(dev, a, env) -> tuple:
     return counts
 
 
+# the timing copies of K10's generic_epilogue and K9's frozen_commit: the
+# launch alone, without the grid barrier, without stores; frozen_commit also
+# without the last block's sum and without the partner gather
 COMMIT_COPIES = {0: "whole", 1: "launch and set-up only", 2: "no grid barrier", 4: "no stores"}
 FROZEN_COPIES = {**COMMIT_COPIES, 8: "no last block's sum", 16: "no partner gather"}
 # the timing copies of K9's frozen_epilogue_vjp and K10's generic_epilogue_vjp

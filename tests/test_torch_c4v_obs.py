@@ -12,6 +12,8 @@ spectra 1e-10; C4v against the generic evaluators 1e-8; ``energy_1x1``
 against ``energy_1x1_lowmem`` 1e-10.
 """
 
+from types import SimpleNamespace
+
 import numpy as np
 import pytest
 import torch
@@ -25,13 +27,15 @@ from tpeps.ctm.c4v import rdm as j_rdm
 from tpeps.ctm.c4v import transferops as j_top
 from tpeps.ctm.c4v.ctmrg import run_fixed_point as j_run_fixed_point
 from tpeps.ctm.generic import corrf as j_gcorrf
+from tpeps.ctm.generic import transferops as j_gtop
 from tpeps.ipeps.ipeps_c4v import symmetrize_c4v as j_symmetrize
 from tpeps.linalg import arnoldi as j_arnoldi
 from tpeps.models.j1j2 import J1J2_C4V_BIPARTITE as J_J1J2
 from tpeps_torch.ctm.c4v import corrf, rdm, transferops
 from tpeps_torch.ctm.c4v.env import EnvC4v, compute_multiplets, env_c4v_to_generic
 from tpeps_torch.ctm.generic import corrf as gcorrf
-from tpeps_torch.ctm.generic.transferops import get_Top_spec
+from tpeps_torch.ctm.generic.transferops import (get_EH_spec_Ttensor,
+                                                 get_full_EH_spec_Ttensor, get_Top_spec)
 from tpeps_torch.groups import su2
 from tpeps_torch.linalg import arnoldi
 from tpeps_torch.models.j1j2 import J1J2_C4V_BIPARTITE
@@ -161,21 +165,16 @@ def test_top_spec_matches_jax(d2, width):
     assert abs(np.hypot(*got[0]) - 1.0) < 1e-12
 
 
+def _duck(a, sites, site_of, C, T):
+    """Duck-typed single-site state and environment over a generic
+    environment, as the generic evaluators of either package read them."""
+    st = SimpleNamespace(lX=1, lY=1, sites=sites, vertexToSite=site_of,
+                         site=lambda coord=(0, 0): a)
+    return st, SimpleNamespace(chi=C[(0, 0), (-1, -1)].shape[0], C=C, T=T)
+
+
 def _generic(a, env):
-    sites, site_of, C, T = env_c4v_to_generic(a, env)
-
-    class _St:
-        lX = lY = 1
-
-    st = _St()
-    st.sites, st.vertexToSite = sites, site_of
-
-    class _Env:
-        chi = env.C.shape[0]
-
-    e = _Env()
-    e.C, e.T = C, T
-    return st, e
+    return _duck(a, *env_c4v_to_generic(a, env))
 
 
 def test_eh_spec_c4v(d2):
@@ -192,6 +191,29 @@ def test_eh_spec_c4v(d2):
     s_c4v = transferops.get_Top_spec_c4v(4, at, et)
     s_gen = get_Top_spec(4, (0, 0), (1, 0), st, e)
     assert np.abs(np.hypot(*s_c4v.T) - np.hypot(*s_gen.T)).max() < 1e-8
+
+
+@pytest.mark.parametrize("direction", [(1, 0), (0, -1), (0, 1), (-1, 0)])
+@pytest.mark.parametrize("kind", ["c4v", "random_T"])
+def test_full_eh_spec_matches_jax(d2, kind, direction):
+    """The dense EH spectrum at L=3 on the expanded 1x1 environment and on
+    one whose T tensors are random (no symmetry hides a leg order): JAX's
+    eigenvalues (1e-10) and, on the leading four, the magnitudes of the
+    Krylov ``get_EH_spec_Ttensor`` (1e-8)."""
+    (aj, ej), (at, et) = d2
+    sites, site_of, C, T = env_c4v_to_generic(at, et)
+    if kind == "random_T":
+        rng = np.random.RandomState(5)
+        T = {k: torch.from_numpy(rng.rand(*v.shape) - 0.3) for k, v in sorted(T.items())}
+    st, e = _duck(at, sites, site_of, C, T)
+    jsites, jsite_of, jC, _ = j_env.env_c4v_to_generic(aj, ej)
+    stj, ejg = _duck(aj, jsites, jsite_of, jC, {k: jnp.asarray(v.numpy()) for k, v in T.items()})
+    full = get_full_EH_spec_Ttensor(3, (0, 0), direction, st, e)
+    ref = j_gtop.get_full_EH_spec_Ttensor(3, (0, 0), direction, stj, ejg)
+    close(np.abs(full), np.abs(ref), 1e-10)
+    close(np.sort_complex(full), np.sort_complex(ref), 1e-10)
+    it = get_EH_spec_Ttensor(4, 3, (0, 0), direction, st, e)
+    close(np.abs(full[:4]), np.hypot(*it.T), 1e-8)
 
 
 def test_c4v_width2_transfer_spec(d2):

@@ -12,9 +12,9 @@ multiply-adds.
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
+from ..generic.corrf import _aXa, _split_op2
 from .env import EnvC4v
 
 
@@ -25,28 +25,34 @@ def get_edge(env: EnvC4v):
     return torch.einsum("ybm,bw->ymw", E, C)
 
 
-def _aXa(a, op=None):
-    """Double-layer site ``A[u^2, l^2, d^2, r^2]`` (ket-major pairs) with an
-    optional one-site operator on the ket layer."""
-    d = a.shape
-    a_op = a if op is None else torch.einsum("mefgh,mn->nefgh", a, op)
-    A = torch.einsum("nefgh,nabcd->eafbgchd", a_op, a.conj())
-    return A.reshape(d[1] ** 2, d[2] ** 2, d[3] ** 2, d[4] ** 2)
+def _column_steps(A, T):
+    """One column T[q,t,u] A[u,l,d,r] T[b,w,d] as its five named steps, each
+    a function of the previous step's output: three products and the two
+    permutes that lay out their operands.  The first takes
+    ``edge[t,l,b]``, the last returns ``[q,r,w]``."""
+    chi, D2 = T.shape[0], T.shape[2]
+    A = A.reshape(D2 * D2, D2 * D2)
+    Tq = T.transpose(0, 1).reshape(chi, chi * D2)
+    Tw = T.permute(0, 2, 1).reshape(chi * D2, chi)
+    return (
+        # lbqu: contract t
+        ("edge T", lambda e: e.reshape(chi, D2 * chi).transpose(0, 1) @ Tq),
+        ("permute 1", lambda E: E.reshape(D2, chi, chi, D2).permute(1, 2, 3, 0)
+         .reshape(chi * chi, D2 * D2)),
+        # bqdr: contract (u,l)
+        ("product with A", lambda E: E @ A),
+        ("permute 2", lambda E: E.reshape(chi, chi, D2, D2).permute(1, 3, 0, 2)
+         .reshape(chi * D2, chi * D2)),
+        # qrw: contract (b,d)
+        ("closing T", lambda E: (E @ Tw).reshape(chi, D2, chi)),
+    )
 
 
 def _column(A, T, edge):
     """``edge[t,l,b]`` -> ``[q,r,w]`` through T[q,t,u] A[u,l,d,r] T[b,w,d]."""
-    chi, D2 = T.shape[0], T.shape[2]
-    chi_e = edge.shape[0]
-    # lbqu: contract t
-    E = edge.reshape(chi_e, D2 * chi).transpose(0, 1) @ T.transpose(0, 1).reshape(chi, chi * D2)
-    # bqdr: contract (u,l)
-    E = E.reshape(D2, chi, chi, D2).permute(1, 2, 3, 0).reshape(chi * chi, D2 * D2)
-    E = E @ A.reshape(D2 * D2, D2 * D2)
-    # qrw: contract (b,d)
-    E = E.reshape(chi, chi, D2, D2).permute(1, 3, 0, 2).reshape(chi * D2, chi * D2)
-    E = E @ T.permute(0, 2, 1).reshape(chi * D2, chi)
-    return E.reshape(chi, D2, chi)
+    for _, step in _column_steps(A, T):
+        edge = step(edge)
+    return edge
 
 
 def apply_TM_1sO(a, env: EnvC4v, edge, op=None):
@@ -83,19 +89,6 @@ def corrf_1sO1sO(a, env: EnvC4v, op1, get_op2, dist: int):
         out.append(apply_edge(env, E12) / apply_edge(env, E0))
         E0, E1 = _normalize_pair(E0, E1)
     return torch.stack(out)
-
-
-def _split_op2(op2, d):
-    """SVD-split a two-site gate ``op2[s0,s1,s0',s1']`` into
-    ``sum_k o1_k (x) o2_k`` on the host (small d: an exact split); the
-    factors go back to ``op2``'s device and dtype."""
-    m = np.asarray(op2.detach().cpu()).reshape(d, d, d, d).transpose(0, 2, 1, 3)
-    U, S, Vh = np.linalg.svd(m.reshape(d * d, d * d), full_matrices=False)
-    k = max(int((S > 1e-14 * max(S[0], 1e-300)).sum()), 1)
-    o1 = (U[:, :k] * S[:k][None, :]).T.reshape(k, d, d)
-    o2 = Vh[:k].reshape(k, d, d)
-    conv = lambda x: torch.as_tensor(x, device=op2.device).to(op2.dtype)
-    return conv(o1), conv(o2)
 
 
 def apply_TM_2sO(a, env: EnvC4v, edge, op2=None):

@@ -10,13 +10,21 @@ any cell, e.g. :func:`tpeps_torch.ctm.c4v.env.env_c4v_to_generic`.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
-
-from ..c4v.corrf import _aXa, _split_op2
 
 
 def _shift(c, d):
     return (c[0] + d[0], c[1] + d[1])
+
+
+def _aXa(a, op=None):
+    """Double-layer site ``A[u^2, l^2, d^2, r^2]`` (ket-major pairs) with an
+    optional one-site operator on the ket layer."""
+    d = a.shape
+    a_op = a if op is None else torch.einsum("mefgh,mn->nefgh", a, op)
+    A = torch.einsum("nefgh,nabcd->eafbgchd", a_op, a.conj())
+    return A.reshape(d[1] ** 2, d[2] ** 2, d[3] ** 2, d[4] ** 2)
 
 
 def get_edge(coord, direction, sites, site_of, C, T):
@@ -86,6 +94,19 @@ def corrf_1sO1sO(coord, direction, sites, site_of, C, T, op1, get_op2, dist: int
         scale = E0.abs().max()
         E0, E1 = E0 / scale, E1 / scale
     return torch.stack(out)
+
+
+def _split_op2(op2, d):
+    """SVD-split a two-site gate ``op2[s0,s1,s0',s1']`` into
+    ``sum_k o1_k (x) o2_k`` on the host (small d: an exact split); the
+    factors go back to ``op2``'s device and dtype."""
+    m = np.asarray(op2.detach().cpu()).reshape(d, d, d, d).transpose(0, 2, 1, 3)
+    U, S, Vh = np.linalg.svd(m.reshape(d * d, d * d), full_matrices=False)
+    k = max(int((S > 1e-14 * max(S[0], 1e-300)).sum()), 1)
+    o1 = (U[:, :k] * S[:k][None, :]).T.reshape(k, d, d)
+    o2 = Vh[:k].reshape(k, d, d)
+    conv = lambda x: torch.as_tensor(x, device=op2.device).to(op2.dtype)
+    return conv(o1), conv(o2)
 
 
 def apply_TM_2sO(coord, direction, sites, site_of, C, T, edge, op2=None):

@@ -37,7 +37,7 @@ def make_parser():
     return parser
 
 
-def main(argv=None, energy_attr="energy_1x1_lowmem"):
+def main(argv=None):
     """:return: ``(energy, obs_values, obs_labels, out)`` with ``out`` the
     correlations (``"ss"``, r = 1..corrf_r+1) and the spectrum (``"top"``, an
     (n, 2) array) when asked for"""
@@ -49,7 +49,7 @@ def main(argv=None, energy_attr="energy_1x1_lowmem"):
                                delta_zz=args.delta_zz, dtype=cfg.global_args.torch_dtype,
                                device=cfg.global_args.torch_device)
     A0 = initial_site_c4v(cfg, model.phys_dim)
-    e, a, env, obs_values, obs_labels = ctmrg_c4v(cfg, model, getattr(model, energy_attr), A0)
+    e, a, env, obs_values, obs_labels = ctmrg_c4v(cfg, model, model.energy_1x1_lowmem, A0)
     out = {}
     if args.corrf_r > 1:
         out["ss"] = model.eval_corrf_SS(a, env, args.corrf_r)["ss"].cpu()
